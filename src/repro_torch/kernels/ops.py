@@ -1,0 +1,147 @@
+"""Public wrappers of the port's CUDA kernels.
+
+Same signatures and output shapes as the reference's ``repro.kernels.ops``
+wrappers. For tensors on the CPU a wrapper computes the plain PyTorch
+version (`kernels.ref`); for CUDA tensors it launches the hand-written
+kernel on the current stream or raises — there is no fallback. Outputs are
+allocated here with ``torch.empty``; the kernels allocate nothing.
+
+``launches`` counts kernel launches per wrapper (plain integers, bumped
+only where a kernel is launched), so a run can show that its main path
+went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.core.features import N_ADDR_KEYS, N_FEATURES, STATIC_END
+from repro_torch.kernels import _build, ref
+
+launches = {"fused_step": 0, "cnn_trunk": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def _weight_ptrs(weights):
+    """Device addresses of the weights and biases. The kernels load the
+    weights as float4/float2, so each must start 16-byte aligned (a fresh
+    allocation does); activations and state planes are read by element."""
+    flat = [t for wb in weights for t in wb]
+    for t in flat:
+        if t.data_ptr() % 16:
+            raise ValueError("conv weights must be 16-byte aligned; pass a fresh .clone()")
+    return [t.data_ptr() for t in flat]
+
+
+def _weights(layer_params: Sequence[dict]):
+    if len(layer_params) != 3:
+        raise ValueError(
+            f"the trunk kernels fuse exactly the C3 depth (3 conv layers), got {len(layer_params)}"
+        )
+    return [(_f32(lp["w"]), _f32(lp["b"])) for lp in layer_params]
+
+
+def _check_trunk_shapes(weights, c0: int, seq: int):
+    (w1, b1), (w2, b2), (w3, b3) = weights
+    c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    want = [(2 * c0, c1), (2 * c1, c2), (2 * c2, c3)]
+    for i, ((w, b), shape) in enumerate(zip(weights, want)):
+        if tuple(w.shape) != shape or tuple(b.shape) != (shape[1],):
+            raise ValueError(f"conv{i} weight {tuple(w.shape)} / bias {tuple(b.shape)} "
+                             f"do not chain from {c0} input channels")
+    if seq % 8 or c0 % 2 or c1 % 4 or c2 % 4 or c3 % 2:
+        raise ValueError(f"kernel needs seq % 8 == 0, even input channels, C1/C2 % 4 == 0 "
+                         f"and C3 even; got seq={seq}, channels={(c0, c1, c2, c3)}")
+    return c1, c2, c3
+
+
+def _cuda_device(*tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, got one on {t.device}")
+    return dev
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    fn = _build.load(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launches[name] += 1
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+def cnn_trunk(layer_params: Sequence[dict], x: torch.Tensor) -> torch.Tensor:
+    """Whole fused C3 trunk. x: (B, N, C) -> (B, N//8, C3), in f32 whatever
+    x's dtype (as the reference's wrapper)."""
+    weights = _weights(layer_params)
+    x = x.to(torch.float32)
+    if x.device.type == "cpu":
+        return ref.cnn_trunk_ref(weights, x)
+    dev = _cuda_device(x, *[t for wb in weights for t in wb])
+    B, N, C = x.shape
+    c1, c2, c3 = _check_trunk_shapes(weights, C, N)
+    x = _f32(x)
+    out = torch.empty((B, N // 8, c3), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    ptrs = [x.data_ptr(), *_weight_ptrs(weights), out.data_ptr()]
+    _launch("cnn_trunk", dev, *ptrs, B, N, C, c1, c2, c3)
+    return out
+
+
+def fused_step(layer_params: Sequence[dict], state, cur_feat: torch.Tensor,
+               cur_addr: torch.Tensor, *, seq_padded: int) -> torch.Tensor:
+    """Fused ring-state sim-step trunk: recency reorder + model-input
+    assembly + the whole C3 conv stack in one kernel (the (L, 1+Q, 50)
+    input never reaches device memory). ``state`` is a ring-layout
+    `core.simulator.SimState` (only the queue planes and the global
+    ``head`` cursor are read; the planes are taken in f32). Returns
+    (L, seq_padded//8, C3)."""
+    weights = _weights(layer_params)
+    if cur_feat.device.type == "cpu":
+        return ref.fused_step_ref(weights, state, cur_feat, cur_addr, seq_padded=seq_padded)
+    L, Q, CF = state.feat.shape
+    if CF != STATIC_END or tuple(state.addr.shape) != (L, Q, N_ADDR_KEYS):
+        raise ValueError(f"state planes feat {tuple(state.feat.shape)} / addr "
+                         f"{tuple(state.addr.shape)} are not (L, Q, {STATIC_END}) / "
+                         f"(L, Q, {N_ADDR_KEYS})")
+    if tuple(cur_feat.shape) != (L, STATIC_END) or tuple(cur_addr.shape) != (L, N_ADDR_KEYS):
+        raise ValueError(f"cur_feat {tuple(cur_feat.shape)} / cur_addr "
+                         f"{tuple(cur_addr.shape)} do not match {L} lanes")
+    if seq_padded < Q + 1:
+        raise ValueError(f"seq_padded={seq_padded} cannot hold 1 + {Q} rows")
+    if state.valid.dtype != torch.bool or state.head.numel() != 1:
+        raise ValueError("state.valid must be bool and state.head a scalar")
+    c1, c2, c3 = _check_trunk_shapes(weights, N_FEATURES, seq_padded)
+    planes = [
+        _f32(state.feat),
+        state.addr.to(torch.int32).contiguous(),
+        _f32(state.resid),
+        _f32(state.exec_lat),
+        _f32(state.store_lat),
+        state.valid.contiguous(),
+        state.head.to(torch.int32).contiguous(),
+        _f32(cur_feat),
+        cur_addr.to(torch.int32).contiguous(),
+    ]
+    dev = _cuda_device(*planes, *[t for wb in weights for t in wb])
+    out = torch.empty((L, seq_padded // 8, c3), dtype=torch.float32, device=dev)
+    if L == 0:
+        return out
+    ptrs = [p.data_ptr() for p in planes] + _weight_ptrs(weights) + [out.data_ptr()]
+    _launch("fused_step", dev, *ptrs, L, Q, seq_padded, c1, c2, c3)
+    return out

@@ -1,0 +1,44 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function computes what its CUDA kernel computes, in ordinary tensor
+ops: the ``kernels.ops`` wrappers call these for tensors on the CPU, and
+``chip_smoke.py`` holds each kernel against its plain version on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.simulator import build_model_input, recency_view
+
+
+def conv2s_ref(x, w, b):
+    """Non-overlapping conv1d kernel=2 stride=2 + bias + ReLU.
+
+    x: (B, N, C); w: (2C, Co); b: (Co,). -> (B, N//2, Co)
+    """
+    B, N, C = x.shape
+    xr = x.reshape(B, N // 2, 2 * C)
+    return torch.relu(torch.einsum("bnc,co->bno", xr, w) + b)
+
+
+def cnn_trunk_ref(layers, x):
+    """Chain of conv2s layers. layers: [(w, b), ...]."""
+    h = x
+    for w, b in layers:
+        h = conv2s_ref(h, w, b)
+    return h
+
+
+def fused_step_ref(layers, state, cur_feat, cur_addr, *, seq_padded: int):
+    """Ring-state assembly + trunk: `recency_view` → `build_model_input`
+    with the planes in f32 → sequence pad to ``seq_padded`` →
+    `cnn_trunk_ref`. layers: [(w, b), ...] in f32. -> (L, seq_padded//8, C3)."""
+    f32 = state._replace(
+        feat=state.feat.to(torch.float32),
+        resid=state.resid.to(torch.float32),
+        exec_lat=state.exec_lat.to(torch.float32),
+        store_lat=state.store_lat.to(torch.float32),
+    )
+    x = build_model_input(recency_view(f32), cur_feat.to(torch.float32), cur_addr)
+    x = torch.nn.functional.pad(x, (0, 0, 0, seq_padded - x.shape[1]))
+    return cnn_trunk_ref(layers, x)

@@ -7,6 +7,14 @@ from repro.des.o3 import O3Config, O3Simulator
 from repro.des.workloads import get_benchmark
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA GPU and nvcc (hand-written kernels of repro_torch); "
+        "skips without one",
+    )
+
+
 def synth_arrays(T, seed):
     """A tiny synthetic trace-arrays dict (teacher-forced label replay) —
     the serving tests' fast-tier workload; the machinery under test is
