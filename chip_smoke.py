@@ -5,11 +5,21 @@ Run from the root of a checkout on a machine with the card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc``, holds each kernel against its plain PyTorch version on the card
-at the main path's shapes, checks teacher-forced exactness, and drives the
-main path — a pack of C3-predicted workloads through
-``SimNetEngine.simulate_many`` — counting the kernel launches it makes.
+It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+``nvcc`` (fused_step K1, cnn_trunk K2, conv2s K3, decode_attn K4), holds
+each against its plain PyTorch version on the card at its path's shapes,
+and drives the paths that run them, counting the launches each makes:
+
+- the SimNet simulator: teacher-forced exactness, then a pack of
+  C3-predicted workloads through ``SimNetEngine.simulate_many`` (K1 on the
+  ring layout, K2 on the roll layout);
+- the public kernel API ``kernels.ops.conv2s`` (K3), chained over the C3
+  trunk;
+- LM decode serving: gemma3-4b at full width (random weights from a
+  seed), 8 requests x 2048 prompt tokens prefilled, then 64 greedy steps
+  through ``DecodeEngine`` with ``use_kernel=True`` (K4 in every layer),
+  and the decode path's exactness (kernel vs plain, CUDA vs CPU).
+
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
 
@@ -38,6 +48,25 @@ TF_BENCHES = (("mlb_mixed", 12000), ("sim_loop", 8000), ("mlb_stream", 8000))
 PRED_BENCHES = ("mlb_stream", "mlb_compute", "mlb_branchy", "mlb_mixed",
                 "sim_chase", "sim_loop", "sim_branchy_hard", "sim_phased")
 PRED_LANES, PRED_STEPS = 128, 256  # per workload: 8 x 128 = 1024 live lanes
+LM_ARCH = "gemma3-4b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 8, 2048, 64  # requests, prompt tokens, decode steps
+LM_CACHE = 2112  # prompt + steps
+LM_PROFILE_STEPS = 8
+# K4 vs plain, (rtol, atol): both compute in f32 and differ in summation
+# order only. f32: 1e-5. bf16: the outputs are rounded to bf16 (8
+# significant bits), and another sum order can move a value across a
+# rounding boundary, one bf16 step = at most 2**-7 of the value; atol 1e-4
+# covers values near zero (typical outputs here are ~0.03)
+DECODE_TOL = {"bfloat16": (2 ** -7, 1e-4), "float32": (1e-5, 1e-5)}
+EXACT_LAYERS, EXACT_PROMPT, EXACT_STEPS, EXACT_BATCH = 6, 48, 16, 4
+EXACT_TOL = 1e-4  # f32 logits, CUDA vs CPU
+# Full width in bf16, kernel vs plain path, first-step logits, relative to
+# max |logit|. The plain path rounds q.k and the probabilities to bf16 (8
+# significant bits) where the kernel keeps f32, and the difference passes
+# through 34 layers: 1.4% of max |logit| measured on the H100 (PERF.md);
+# 5% leaves room for other weights and prompts. The sharp test of
+# the kernel path is the f32 one at reduced depth (EXACT_TOL).
+FULL_TOL = 0.05
 
 
 def log(*a):
@@ -70,7 +99,8 @@ def time_ms(torch, fn, iters=20, warmup=3):
 
 def bound(n_bytes, n_ops):
     """Least time (ms) the card could take: bytes over the memory rate vs
-    f32 operations over the f32 peak, whichever is larger."""
+    f32 operations over the f32 peak, whichever is larger (every kernel
+    here computes in f32 outside the tensor cores)."""
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -190,7 +220,113 @@ def kernel_phase(torch, dev):
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"matmul chain {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    return pcfg, params, rows
+    return pcfg, params, rows, x
+
+
+def conv_decode_kernel_phase(torch, dev, params, x):
+    """K3 at the first C3 layer's shape and K4 at the LM decode path's
+    shape, each against its plain version; the library call beside each
+    is timed only."""
+    import numpy as np
+    import torch.nn.functional as Fn
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    lp = params["conv0"]
+    B, N, C = x.shape
+    co = lp["w"].shape[1]
+    log(f"[3b] conv2s at the first C3 layer's shape {tuple(x.shape)} -> {co} channels")
+
+    def k3():
+        return ops.conv2s(lp, x)
+
+    def p3():
+        return ref.conv2s_ref(x, lp["w"], lp["b"])
+
+    x2 = x.reshape(B, N // 2, 2 * C)
+
+    def lib3():  # matmul + bias + ReLU on the reshaped input (yardstick only)
+        return torch.relu(torch.matmul(x2, lp["w"]) + lp["b"])
+
+    out = k3()
+    torch.cuda.synchronize()
+    err = compare(torch, "conv2s", out, p3())
+    b_ms, b_by = bound(x.nbytes + lp["w"].nbytes + lp["b"].nbytes + out.nbytes,
+                       2 * B * (N // 2) * 2 * C * co)
+    rows.append(dict(name="conv2s", route="cuda", source="src/repro_torch/kernels/csrc/conv2s.cu",
+                     replaces="src/repro/kernels/conv2s.py:37", max_abs_err=err,
+                     ms=time_ms(torch, k3), plain_ms=time_ms(torch, p3), bound_ms=b_ms,
+                     bound_by=b_by, library_ms=time_ms(torch, lib3)))
+
+    cfg = get_config(LM_ARCH)
+    H, KV, hd, S, Bq = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, LM_CACHE, LM_BATCH
+    log(f"[3b] decode_attn at {LM_ARCH}'s decode shape: q ({Bq}, {H}, {hd}), k/v "
+        f"({Bq}, {S}, {KV}, {hd}); windows {cfg.local_window} and 0")
+    rng = np.random.default_rng(SEED)
+    base = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+            for shape in ((Bq, H, hd), (Bq, S, KV, hd), (Bq, S, KV, hd))]
+    errs = {}
+    for dtype, (rtol, atol) in DECODE_TOL.items():
+        q, k, v = (t.to(getattr(torch, dtype)) for t in base)
+        errs[dtype] = 0.0
+        for window in (cfg.local_window, 0):
+            for cache_len in (S, 1, 1500):
+                cl = torch.tensor(cache_len, dtype=torch.int32, device=dev)
+                got = ops.decode_attn(q, k, v, cl, window=window)
+                torch.cuda.synchronize()
+                want = ref.decode_attn_ref(q, k, v, torch.clamp(cl, max=S), window=window).to(q.dtype)
+                e = float((got.float() - want.float()).abs().max())
+                errs[dtype] = max(errs[dtype], e)
+                what = f"decode_attn {dtype} window={window} cache_len={cache_len}"
+                check(bool(torch.isfinite(got).all()) and got.shape == q.shape and got.dtype == q.dtype,
+                      f"{what}: finite, shape {tuple(got.shape)}, max_abs_err={e:.3e}")
+                check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
+                      f"{what} matches its plain version (rtol={rtol}, atol={atol})")
+    q, k, v = (t.to(torch.bfloat16) for t in base)
+    cl = torch.tensor(S, dtype=torch.int32, device=dev)
+    pos = torch.arange(S, device=dev)
+    timed = {}
+    for window in (0, cfg.local_window):  # global layers first: their row goes in the JSON line
+        live = S if window == 0 else min(window, S)
+        mask = ((pos < S) & (pos >= S - live)).reshape(1, 1, 1, S)
+        q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+
+        def k4(window=window):
+            return ops.decode_attn(q, k, v, cl, window=window)
+
+        def p4(window=window):
+            return ref.decode_attn_ref(q, k, v, cl, window=window).to(q.dtype)
+
+        def lib4(mask=mask):  # SDPA with a boolean mask (yardstick only)
+            return Fn.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        lib_err = float((lib4()[:, :, 0].float() - p4().float()).abs().max())
+        n_bytes = 2 * q.nbytes + 2 * k[:, :live].nbytes + cl.nbytes
+        b_ms, b_by = bound(n_bytes, 4 * Bq * H * live * hd)
+        timed[window] = dict(ms=time_ms(torch, k4), plain_ms=time_ms(torch, p4),
+                             library_ms=time_ms(torch, lib4), bound_ms=b_ms, bound_by=b_by)
+        t = timed[window]
+        log(f"  decode_attn bf16 window={window} ({live} live positions, {n_bytes / 1e6:.1f} MB): "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms "
+            f"(max |SDPA - plain| {lib_err:.3e}), bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / t['ms']:.1f}% of the bound")
+    n_local = sum(1 for i in range(cfg.n_layers) if cfg.layer_window(i))
+    step_ms = n_local * timed[cfg.local_window]["ms"] + (cfg.n_layers - n_local) * timed[0]["ms"]
+    step_bound = (n_local * timed[cfg.local_window]["bound_ms"]
+                  + (cfg.n_layers - n_local) * timed[0]["bound_ms"])
+    log(f"  per decode step ({n_local} local + {cfg.n_layers - n_local} global layers): "
+        f"kernel {step_ms:.4f} ms vs bound {step_bound:.4f} ms; max_abs_err bf16 "
+        f"{errs['bfloat16']:.3e}, f32 {errs['float32']:.3e}")
+    rows.append(dict(name="decode_attn", route="cuda",
+                     source="src/repro_torch/kernels/csrc/decode_attn.cu",
+                     replaces="src/repro/kernels/decode_attn.py:78",
+                     max_abs_err=errs["bfloat16"], **timed[0]))
+    for r in rows:
+        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
 
 
 def make_traces(names_and_sizes):
@@ -287,9 +423,38 @@ def predicted_phase(torch, dev, pcfg, params):
     return ring, launches, arrays
 
 
+def conv2s_path_phase(torch, params, x):
+    """K3's path: the public kernel API, ``ops.conv2s``, chained over the
+    C3 trunk's three layers as a caller of the API would."""
+    from repro_torch.kernels import ops, ref
+
+    log("[5b] conv2s through the public kernel API: the C3 trunk as three ops.conv2s calls")
+    layers = [params[f"conv{i}"] for i in range(3)]
+    ops.reset_launches()
+    h = x
+    for lp in layers:
+        h = ops.conv2s(lp, h)
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    check(counts["conv2s"] == 3 and sum(counts.values()) == 3,
+          f"conv2s launched once per layer ({counts})")
+    compare(torch, "conv2s chain vs plain trunk", h,
+            ref.cnn_trunk_ref([(lp["w"], lp["b"]) for lp in layers], x))
+    return counts["conv2s"]
+
+
+def device_rows(prof):
+    """(device ms, calls, name) of each device-side event kind (kernels,
+    copies): a CPU op's device time repeats its kernels' and would count
+    them twice."""
+    from torch.autograd import DeviceType
+
+    return [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
 def profile_phase(torch, dev, pcfg, params, arrays, steps=32):
     """Where the main path's time goes, over a short profiled window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.simulator import SimConfig
@@ -304,10 +469,7 @@ def profile_phase(torch, dev, pcfg, params, arrays, steps=32):
         eng.simulate_many(small, n_lanes=PRED_LANES, chunk=steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies): a CPU op's device time
-    # repeats its kernels' and would count them twice
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     if not rows:
         log("[6] profile: the profiler reported no device time (not measured)")
         return
@@ -320,6 +482,191 @@ def profile_phase(torch, dev, pcfg, params, arrays, steps=32):
         log(f"  {key[:100]}: {t:.3f} ms in {count} calls ({100 * t / dev_ms:.1f}% of device time)")
 
 
+def tensors(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for t in tree:
+            yield from tensors(t)
+    else:
+        yield tree
+
+
+def lm_phase(torch, dev):
+    """The LM decode main path at full width: prefill, re-home, then greedy
+    decoding through DecodeEngine with the flash-decode kernel in every
+    layer; then a profiled window of decode steps."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import rehome_state
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import DecodeEngine, copy_state, lm_decoder
+
+    cfg = get_config(LM_ARCH)
+    n_local = sum(1 for i in range(cfg.n_layers) if cfg.layer_window(i))
+    log(f"[7] LM decode main path: {LM_ARCH} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, head_dim {cfg.head_dim}, "
+        f"vocab {cfg.vocab}; {n_local} local layers of window {cfg.local_window}, "
+        f"{cfg.n_layers - n_local} global), {cfg.dtype}")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    leaves = list(tensors(params))
+    log(f"  random weights (torch.Generator seed {SEED}) in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(t.numel() for t in leaves) / 1e9:.3f} B parameters, "
+        f"{sum(t.nbytes for t in leaves) / 1e9:.2f} GB on the card")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT))
+    tokens = torch.from_numpy(prompts.astype(np.int32)).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logits, state = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(logits.shape == (LM_BATCH, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"prefill logits finite, shape {tuple(logits.shape)}")
+    check(tuple(state["k"].shape) == (cfg.n_layers, LM_BATCH, LM_PROMPT, cfg.n_kv_heads, cfg.head_dim),
+          f"prefill KV cache {tuple(state['k'].shape)}")
+    log(f"  prefill {LM_BATCH} x {LM_PROMPT} tokens: {prefill_s:.3f} s "
+        f"({LM_BATCH * LM_PROMPT / prefill_s:.0f} tokens/s), peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    full = rehome_state(cfg, state, LM_CACHE)
+    del state
+    first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    engine = DecodeEngine(lm_decoder(model, use_kernel=True), params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    stream, final, tps = engine.generate(full, first, LM_STEPS)
+    counts = dict(ops.launches)
+    want = cfg.n_layers * LM_STEPS * 2
+    check(counts["decode_attn"] == want and sum(counts.values()) == want,
+          f"decode_attn launched once per layer and step, warm-up and timed pass: {counts} "
+          f"({cfg.n_layers} x {LM_STEPS} x 2 = {want})")
+    check(tuple(stream.shape) == (LM_STEPS, LM_BATCH) and stream.dtype == torch.int32
+          and bool(((stream >= 0) & (stream < cfg.vocab)).all()), "generated tokens in the vocabulary")
+    check(int(final["pos"]) == LM_PROMPT + LM_STEPS, f"final position {int(final['pos'])}")
+    del final
+    log(f"  decode {LM_STEPS} steps x {LM_BATCH} requests (timed pass of generate): "
+        f"{tps:.1f} tokens/s, {1e3 * LM_BATCH / tps:.3f} ms per decode step, peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    log(f"  first request's tokens: {stream[:16, 0].tolist()} ...")
+
+    st, tok = copy_state(full), first
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILE_STEPS):
+            lg, st = model.decode_step(params, st, tok, use_kernel=True)
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del st
+    rows = device_rows(prof)
+    if not rows:
+        log("[7] profile: the profiler reported no device time (not measured)")
+    else:
+        dev_ms = sum(r[0] for r in rows)
+        k4_ms = sum(r[0] for r in rows if "decode_split_kernel" in r[2] or "decode_combine_kernel" in r[2])
+        log(f"  profile of {LM_PROFILE_STEPS} decode steps (profiler on): wall {wall_ms:.2f} ms "
+            f"({wall_ms / LM_PROFILE_STEPS:.3f} ms/step), device busy {dev_ms:.2f} ms "
+            f"({100 * dev_ms / wall_ms:.1f}% of wall), {sum(r[1] for r in rows) / LM_PROFILE_STEPS:.1f} "
+            f"device operations per step; decode_attn (split + combine) {k4_ms:.3f} ms "
+            f"({100 * k4_ms / dev_ms:.1f}% of device time)")
+        for t, count, key in sorted(rows, reverse=True)[:8]:
+            log(f"  {key[:100]}: {t:.3f} ms in {count} calls ({100 * t / dev_ms:.1f}% of device time)")
+    return dict(model=model, params=params, full=full, first=first, stream=stream,
+                launches=counts["decode_attn"])
+
+
+def logging_decoder(model, use_kernel, logits):
+    """``lm_decoder(model, use_kernel=...)`` that also appends each step's
+    logits to ``logits``."""
+    from repro_torch.serving.engine import StatefulDecoder, lm_decoder
+
+    inner = lm_decoder(model, use_kernel=use_kernel)
+
+    def step(params, state, token):
+        lg, state = inner.step(params, state, token)
+        logits.append(lg)
+        return lg, state
+
+    return StatefulDecoder(inner.init_state, step, inner.name)
+
+
+def decode_exactness_phase(torch, dev, lm):
+    """The decode path's exactness: at reduced depth in f32, the kernel and
+    plain paths and the CUDA and CPU runs agree; at full width in bf16,
+    teacher-forced, the kernel and plain paths' logits agree."""
+    import numpy as np
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import rehome_state
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import DecodeEngine, copy_state
+
+    cfg = reduced(get_config(LM_ARCH), n_layers=EXACT_LAYERS, dtype="float32")
+    windows = [cfg.layer_window(i) for i in range(cfg.n_layers)]
+    log(f"[8] decode exactness, {LM_ARCH} reduced to {cfg.n_layers} layers (windows {windows}), "
+        f"f32, {EXACT_BATCH} x {EXACT_PROMPT}-token prompts, {EXACT_STEPS} greedy steps")
+    model = build_model(cfg)
+    prompts = np.random.default_rng(SEED + 1).integers(0, cfg.vocab, (EXACT_BATCH, EXACT_PROMPT))
+    runs = {}
+    with torch.no_grad():
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            # a CPU generator draws the same weights for both devices
+            params = model.init(torch.Generator().manual_seed(SEED), device=device)
+            tokens = torch.from_numpy(prompts.astype(np.int32)).to(device)
+            for use_kernel in (True, False):
+                logits, st = model.prefill(params, {"tokens": tokens})
+                full = rehome_state(cfg, st, EXACT_PROMPT + EXACT_STEPS)
+                first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+                lgs = []
+                toks, _, _ = DecodeEngine(logging_decoder(model, use_kernel, lgs), params).generate(
+                    full, first, EXACT_STEPS)
+                # generate decodes twice (warm-up, then timed): keep the timed pass's logits
+                check(len(lgs) == 2 * EXACT_STEPS, f"{where} use_kernel={use_kernel}: "
+                      f"{len(lgs)} decode steps in generate's two passes")
+                runs[(where, use_kernel)] = (toks.cpu(), torch.stack(lgs[EXACT_STEPS:]).cpu())
+    (tk, lk), (tp, lp) = runs[("card", True)], runs[("card", False)]
+    check(torch.equal(tk, tp), f"CUDA: greedy tokens of the kernel path equal the plain path's "
+          f"(max |logit diff| {float((lk - lp).abs().max()):.3e})")
+    for use_kernel in (True, False):
+        (tc, lc), (tg, lg) = runs[("cpu", use_kernel)], runs[("card", use_kernel)]
+        d = float((lc - lg).abs().max())
+        check(torch.equal(tc, tg) and torch.allclose(lg, lc, rtol=EXACT_TOL, atol=EXACT_TOL),
+              f"use_kernel={use_kernel}: CUDA tokens equal the CPU's, logits within {EXACT_TOL} "
+              f"(max |diff| {d:.3e})")
+
+    model, params, full, stream = lm["model"], lm["params"], lm["full"], lm["stream"]
+    log(f"[8] full width, {model.cfg.dtype}, teacher-forced: the kernel path's greedy stream "
+        f"of [7] into both paths, {LM_STEPS} steps")
+    sk, sp, tok = copy_state(full), copy_state(full), lm["first"]
+    agree, diffs = [], []
+    with torch.no_grad():
+        for i in range(LM_STEPS):
+            a, sk = model.decode_step(params, sk, tok, use_kernel=True)
+            b, sp = model.decode_step(params, sp, tok, use_kernel=False)
+            if i == 0:
+                first_k, first_p = a.float(), b.float()
+            agree.append((torch.argmax(a, -1) == torch.argmax(b, -1)).float().mean())
+            diffs.append((a.float() - b.float()).abs().max())
+            tok = stream[i]
+    agree = torch.stack(agree).cpu()
+    diffs = torch.stack(diffs).cpu()
+    scale = float(first_p.abs().max())
+    d0 = float((first_k - first_p).abs().max())
+    log(f"  first step: max |logit| {scale:.3f}, max |kernel - plain| {d0:.4f}; over {LM_STEPS} "
+        f"steps max |diff| {float(diffs.max()):.4f}, mean of per-step max {float(diffs.mean()):.4f}")
+    log(f"  greedy-token agreement, kernel vs plain: {100 * float(agree.mean()):.2f}% of "
+        f"{LM_STEPS * LM_BATCH} (step, request) pairs (printed, not asserted: a bf16 near-tie may flip)")
+    check(d0 <= FULL_TOL * scale, f"first-step logits of the kernel and plain paths within "
+          f"{FULL_TOL} x max |logit| = {FULL_TOL * scale:.4f}")
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         sys.exit("chip_smoke.py must run from the root of a checkout (src/repro_torch is missing)")
@@ -330,6 +677,7 @@ def main():
         sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
 
@@ -343,15 +691,24 @@ def main():
     t0 = time.perf_counter()
     built = _build.build()
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s")
-    for name, b in built.items():
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  {name}: {line.strip()}")
+    for name, b in built.items():  # -Xptxas -v: one line pair per compiled kernel
+        regs = [int(w) for line in b.log.splitlines() if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:]) if nxt.startswith("registers")]
+        spills = [line.strip() for line in b.log.splitlines()
+                  if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        log(f"  {name}: {len(regs)} kernel(s), registers {min(regs, default=0)}-{max(regs, default=0)}, "
+            f"spills: {spills or 'none'}")
 
-    pcfg, params, rows = kernel_phase(torch, dev)
+    pcfg, params, rows, x = kernel_phase(torch, dev)
+    rows += conv_decode_kernel_phase(torch, dev, params, x)
     teacher_forced_phase(torch, dev)
     ring, launches, arrays = predicted_phase(torch, dev, pcfg, params)
+    launches["conv2s"] = conv2s_path_phase(torch, params, x)
     profile_phase(torch, dev, pcfg, params, arrays)
+    del x, arrays
+    lm = lm_phase(torch, dev)
+    launches["decode_attn"] = lm["launches"]
+    decode_exactness_phase(torch, dev, lm)
 
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -1,0 +1,23 @@
+"""qwen3-32b [dense]: 64L d5120 64H (kv=8) d_ff 25600 vocab 151936.
+
+qk_norm, GQA, head_dim 128. [hf:Qwen/Qwen3-8B; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=25600,
+    vocab=151936,
+    rope_theta=1000000.0,
+    qk_norm=True,
+    act="silu",
+    tie_embeddings=False,
+    scan_layers=True,
+    accum_steps=8,
+)

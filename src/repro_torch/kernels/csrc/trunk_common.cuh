@@ -1,4 +1,5 @@
-// Shared device code of the C3-trunk kernels (fused_step.cu, cnn_trunk.cu).
+// Shared device code of the k2s2 conv kernels (fused_step.cu, cnn_trunk.cu,
+// conv2s.cu).
 //
 // A k2s2 convolution over a (rows, C) activation is one GEMM: rows 2i and
 // 2i+1 side by side form row i of a (rows/2, 2C) matrix, which is exactly

@@ -8,7 +8,8 @@ allocated here with ``torch.empty``; the kernels allocate nothing.
 
 ``launches`` counts kernel launches per wrapper (plain integers, bumped
 only where a kernel is launched), so a run can show that its main path
-went through the kernels.
+went through the kernels. A wrapper call counts once, even where it
+launches two kernels (``decode_attn``: the split pass and its combine).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 from repro_torch.core.features import N_ADDR_KEYS, N_FEATURES, STATIC_END
 from repro_torch.kernels import _build, ref
 
-launches = {"fused_step": 0, "cnn_trunk": 0}
+launches = {"fused_step": 0, "cnn_trunk": 0, "conv2s": 0, "decode_attn": 0}
 
 
 def reset_launches() -> None:
@@ -84,6 +85,29 @@ def _launch(name: str, dev: torch.device, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
 
+def conv2s(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Fused k2s2 conv + bias + ReLU. x: (B, N, C) -> (B, N//2, Co), in
+    f32 whatever the inputs' dtype (as the reference's wrapper)."""
+    x = x.to(torch.float32)
+    w, b = _f32(params["w"]), _f32(params["b"])
+    if x.device.type == "cpu":
+        return ref.conv2s_ref(x, w, b)
+    dev = _cuda_device(x, w, b)
+    B, N, C = x.shape
+    co = w.shape[1]
+    if tuple(w.shape) != (2 * C, co) or tuple(b.shape) != (co,):
+        raise ValueError(f"conv weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit "
+                         f"{C} input channels")
+    if N % 2 or C % 2 or co % 2:
+        raise ValueError(f"kernel needs N, C and Co even; got N={N}, C={C}, Co={co}")
+    x = x.contiguous()
+    out = torch.empty((B, N // 2, co), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    _launch("conv2s", dev, x.data_ptr(), *_weight_ptrs([(w, b)]), out.data_ptr(), B, N, C, co)
+    return out
+
+
 def cnn_trunk(layer_params: Sequence[dict], x: torch.Tensor) -> torch.Tensor:
     """Whole fused C3 trunk. x: (B, N, C) -> (B, N//8, C3), in f32 whatever
     x's dtype (as the reference's wrapper)."""
@@ -144,4 +168,58 @@ def fused_step(layer_params: Sequence[dict], state, cur_feat: torch.Tensor,
         return out
     ptrs = [p.data_ptr() for p in planes] + _weight_ptrs(weights) + [out.data_ptr()]
     _launch("fused_step", dev, *ptrs, L, Q, seq_padded, c1, c2, c3)
+    return out
+
+
+_DECODE_DTYPES = (torch.float32, torch.bfloat16)
+_DECODE_HEAD_DIMS = (32, 64, 128, 256)
+
+
+def _decode_splits(dev: torch.device, B: int, KV: int, S: int) -> int:
+    """Splits of the KV length: enough (batch row, kv head, split) blocks to
+    put about four on each SM, but no split shorter than 64 positions."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(-(-4 * sms // (B * KV)), -(-S // 64)))
+
+
+def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_len, *,
+                window: int = 0) -> torch.Tensor:
+    """Flash-decode GQA. q: (B,H,hd); k,v: (B,S,KV,hd); cache_len: scalar
+    int32 (a device tensor on the decode path; it is never read on the
+    host), clamped to S as the reference's wrapper does. -> (B,H,hd) in q's
+    dtype. On the card q, k and v share one dtype, f32 or bf16. At least
+    one position must be live (the decode path's cache_len is pos + 1 >= 1):
+    with none, the kernel returns zeros where the plain version averages
+    every v row."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    cache_len = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
+    if q.device.type == "cpu":
+        clamped = torch.clamp(cache_len, max=S)
+        return ref.decode_attn_ref(q, k, v, clamped, window=window).to(q.dtype)
+    dev = _cuda_device(q, k, v)
+    if cache_len.numel() != 1:
+        raise ValueError(f"cache_len must be a scalar, got shape {tuple(cache_len.shape)}")
+    if tuple(k.shape) != (B, S, KV, hd) or k.shape != v.shape or H % KV:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} are not "
+                         "(B, H, hd), (B, S, KV, hd) x2 with H a multiple of KV")
+    if q.dtype not in _DECODE_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"kernel takes q, k, v of one dtype in {_DECODE_DTYPES}; "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in _DECODE_HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim in {_DECODE_HEAD_DIMS}, got {hd}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (the kernel loads 16 bytes a lane)")
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
+    if B == 0 or H == 0:
+        return out
+    n_splits = _decode_splits(dev, B, KV, S)
+    part_m = torch.empty((B, H, n_splits), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((B, H, n_splits, hd), dtype=torch.float32, device=dev)
+    _launch("decode_attn", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+            B, S, H, KV, hd, int(q.dtype == torch.bfloat16), int(window), n_splits)
     return out

@@ -6,6 +6,7 @@ ops: the ``kernels.ops`` wrappers call these for tensors on the CPU, and
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.simulator import build_model_input, recency_view
@@ -42,3 +43,26 @@ def fused_step_ref(layers, state, cur_feat, cur_addr, *, seq_padded: int):
     x = build_model_input(recency_view(f32), cur_feat.to(torch.float32), cur_addr)
     x = torch.nn.functional.pad(x, (0, 0, 0, seq_padded - x.shape[1]))
     return cnn_trunk_ref(layers, x)
+
+
+def decode_attn_ref(q, k, v, cache_len, *, window: int = 0):
+    """Single-token GQA decode attention (fp32 softmax).
+
+    q: (B, H, hd); k, v: (B, S, KV, hd); cache_len: scalar int32 (tensor or
+    int). window > 0 masks to the trailing window (linear cache layout).
+    Returns (B, H, hd) in f32.
+    """
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd).to(torch.float32)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg, k.to(torch.float32))
+    logits = logits / float(np.sqrt(np.float32(hd)))
+    pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    valid = pos < cache_len
+    if window > 0:
+        valid = valid & (pos >= cache_len - window)
+    logits = torch.where(valid, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bkgs,bskh->bkgh", probs, v.to(torch.float32))
+    return ctx.reshape(B, H, hd)

@@ -48,6 +48,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "import repro_torch, repro_torch.core.simulator, repro_torch.core.predictor\n"
         "import repro_torch.kernels.ops, repro_torch.serving.simnet_engine\n"
         "import repro_torch.des.o3, repro_torch.core.features\n"
+        "import repro_torch.models.lm, repro_torch.models.registry, repro_torch.serving.engine\n"
+        "import repro_torch.nn.attention, repro_torch.configs.registry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -66,6 +66,12 @@ def _ref_state(L, ctx, steps):
     return state, cur
 
 
+def _decode_inputs(B, H, KV, hd, S, seed, dtype=torch.float32, device="cpu"):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+            for shape in ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
 @pytest.fixture(scope="module")
 def ref_ops():
     pytest.importorskip("jax")
@@ -107,6 +113,59 @@ def test_plain_fused_step_matches_reference(ref_ops, L, ctx):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("B,N,C,Co", [(64, 112, 50, 64), (7, 8, 16, 32), (70, 56, 64, 128)])
+def test_plain_conv2s_matches_reference(ref_ops, B, N, C, Co):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(B + N)
+    x = rng.standard_normal((B, N, C)).astype(np.float32)
+    w = (rng.standard_normal((2 * C, Co)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal(Co) * 0.1).astype(np.float32)
+    want = ref_ops.conv2s({"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x))
+    got = ops.conv2s({"w": torch.from_numpy(w), "b": torch.from_numpy(b)}, torch.from_numpy(x))
+    assert got.shape == (B, N // 2, Co) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_plain_conv2s_bf16_inputs_match_reference(ref_ops):
+    """Both wrappers cast bf16 inputs to f32 and return f32."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((16, 32, 24)).astype(np.float32)
+    w = (rng.standard_normal((48, 32)) * 0.1).astype(np.float32)
+    b = np.zeros(32, np.float32)
+    want = ref_ops.conv2s({"w": jnp.asarray(w, jnp.bfloat16), "b": jnp.asarray(b, jnp.bfloat16)},
+                          jnp.asarray(x, jnp.bfloat16))
+    got = ops.conv2s({"w": torch.from_numpy(w).bfloat16(), "b": torch.from_numpy(b).bfloat16()},
+                     torch.from_numpy(x).bfloat16())
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S,cache_len,window,dtype", [
+    (1, 4, 4, 32, 64, 64, 0, "float32"),      # MHA, full cache
+    (2, 8, 2, 32, 300, 150, 0, "float32"),    # GQA, S not a block multiple, cache half full
+    (3, 10, 1, 64, 700, 700, 256, "float32"),  # MQA, window
+    (2, 8, 4, 256, 130, 100, 64, "float32"),  # gemma3's head_dim and group, window
+    (1, 4, 2, 32, 64, 80, 0, "float32"),      # cache_len past S: clamped
+    (2, 4, 4, 32, 128, 128, 0, "bfloat16"),
+    (2, 8, 4, 64, 200, 150, 48, "bfloat16"),
+])
+def test_plain_decode_attn_matches_reference(ref_ops, B, H, KV, hd, S, cache_len, window, dtype):
+    """Against the Pallas kernel in interpret mode: rtol=atol=2e-5 in f32,
+    3e-2 in bf16 (the output is rounded to bf16, as the reference's)."""
+    import jax.numpy as jnp
+
+    q, k, v = _decode_inputs(B, H, KV, hd, S, seed=S + H, dtype=getattr(torch, dtype))
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), getattr(jnp, dtype)) for t in (q, k, v))
+    want = ref_ops.decode_attn(jq, jk, jv, jnp.asarray(cache_len, jnp.int32), window=window)
+    got = ops.decode_attn(q, k, v, torch.tensor(cache_len, dtype=torch.int32), window=window)
+    assert got.shape == (B, H, hd) and got.dtype == q.dtype
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
 # ------------------------------------------------------------- CPU dispatch
 
 
@@ -119,7 +178,11 @@ def test_cpu_tensors_take_the_plain_version():
     state, cur = _port_state(3, 16, _step_inputs(3, 20, seed=3))
     assert torch.equal(ops.fused_step(layers, state, cur["feat"], cur["addr"], seq_padded=24),
                        ref.fused_step_ref(wb, state, cur["feat"], cur["addr"], seq_padded=24))
-    assert ops.launches == {"fused_step": 0, "cnn_trunk": 0}
+    assert torch.equal(ops.conv2s(layers[0], x), ref.conv2s_ref(x, *wb[0]))
+    q, k, v = _decode_inputs(2, 4, 2, 32, 40, seed=8)
+    assert torch.equal(ops.decode_attn(q, k, v, torch.tensor(30, dtype=torch.int32), window=16),
+                       ref.decode_attn_ref(q, k, v, torch.tensor(30), window=16))
+    assert ops.launches == {"fused_step": 0, "cnn_trunk": 0, "conv2s": 0, "decode_attn": 0}
 
 
 def test_fused_step_ref_is_the_plain_composition():
@@ -192,3 +255,46 @@ def test_fused_step_kernel_matches_plain(cuda, L, ctx, state_dtype):
     want = ref.fused_step_ref([(lp["w"], lp["b"]) for lp in layers], state, cur["feat"],
                               cur["addr"], seq_padded=seq_padded)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,C,Co", [(1024, 72, 50, 64), (7, 72, 50, 64), (5, 8, 16, 30), (3, 24, 64, 128)])
+def test_conv2s_kernel_matches_plain(cuda, B, N, C, Co):
+    rng = np.random.default_rng(B + Co)
+    x = torch.from_numpy(rng.standard_normal((B, N, C)).astype(np.float32)).to(cuda)
+    p = {"w": torch.from_numpy((rng.standard_normal((2 * C, Co)) * 0.1).astype(np.float32)).to(cuda),
+         "b": torch.from_numpy((rng.standard_normal(Co) * 0.1).astype(np.float32)).to(cuda)}
+    before = ops.launches["conv2s"]
+    got = ops.conv2s(p, x)
+    torch.cuda.synchronize()
+    assert ops.launches["conv2s"] == before + 1
+    torch.testing.assert_close(got, ref.conv2s_ref(x, p["w"], p["b"]), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,H,KV,hd,S,window,cache_lens", [
+    (8, 8, 4, 256, 2112, 1024, (1, 1500, 2112)),  # gemma3-4b's decode, local layers
+    (8, 8, 4, 256, 2112, 0, (1, 1500, 2112)),     # ... and global layers
+    (2, 4, 2, 32, 48, 32, (1, 33, 48, 60)),       # reduced configs; 60 > S is clamped
+    (3, 32, 4, 64, 500, 0, (7, 500)),             # tinyllama's group of 8
+    (2, 32, 8, 128, 300, 100, (299,)),            # qwen3's head_dim
+    (3, 10, 1, 64, 256, 0, (200,)),               # a group of 10: head tiles of 2
+])
+def test_decode_attn_kernel_matches_plain(cuda, dtype, B, H, KV, hd, S, window, cache_lens):
+    """Both sides compute in f32 from the same inputs, so they differ only
+    in summation order. f32 at rtol=atol=1e-5. In bf16 the outputs are
+    rounded to bf16 (8 significant bits), and a sum order can move a value
+    across a rounding boundary: one bf16 step, at most 2**-7 of the value,
+    hence rtol=2**-7 with atol=1e-4 for values near zero."""
+    dt = getattr(torch, dtype)
+    q, k, v = _decode_inputs(B, H, KV, hd, S, seed=S + hd, dtype=dt, device=cuda)
+    rtol, atol = (2 ** -7, 1e-4) if dtype == "bfloat16" else (1e-5, 1e-5)
+    for cache_len in cache_lens:
+        cl = torch.tensor(cache_len, dtype=torch.int32, device=cuda)
+        before = ops.launches["decode_attn"]
+        got = ops.decode_attn(q, k, v, cl, window=window)
+        torch.cuda.synchronize()
+        assert ops.launches["decode_attn"] == before + 1 and got.dtype == dt
+        want = ref.decode_attn_ref(q, k, v, torch.clamp(cl, max=S), window=window).to(dt)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=f"cache_len {cache_len}")
