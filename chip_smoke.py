@@ -6,9 +6,12 @@ Run from the root of a checkout on a machine with the card:
     python3 chip_smoke.py
 
 It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc`` (fused_step K1, cnn_trunk K2, conv2s K3, decode_attn K4), holds
-each against its plain PyTorch version on the card at its path's shapes,
-and drives the paths that run them, counting the launches each makes:
+``nvcc`` (fused_step K1, cnn_trunk K2, conv2s K3, decode_attn K4) and logs
+each kernel's registers, shared memory and spills; holds each against its
+plain PyTorch version on the card at its path's shapes (and K1 against K2
+bit for bit on the input K1 assembles, at 1024 and 128 lanes, where K1 and
+K2 are also timed); and drives the paths that run them, counting the
+launches each makes:
 
 - the SimNet simulator: teacher-forced exactness, then a pack of
   C3-predicted workloads through ``SimNetEngine.simulate_many`` (K1 on the
@@ -29,7 +32,9 @@ measured (``{"kernels": [...]}``) and the verdict
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -114,26 +119,27 @@ def trunk_ops(n_lanes, seq, chans):
     return ops
 
 
-def populated_state(torch, sim, dev, steps=300):
-    """A ring state after ``steps`` teacher-forced steps of random
-    instructions (long latencies, so the queues fill and overflow)."""
+def populated_state(torch, sim, dev, lanes=L, steps=300):
+    """A ring state of ``lanes`` lanes after ``steps`` teacher-forced steps
+    of random instructions (long latencies, so the queues fill and
+    overflow)."""
     import numpy as np
 
     from repro_torch.core import features as F
 
     rng = np.random.default_rng(SEED)
     cfg = sim.SimConfig(ctx_len=Q)
-    state = sim.init_state(L, cfg, dev)
+    state = sim.init_state(lanes, cfg, dev)
     for _ in range(steps):
-        is_store = rng.random(L) < 0.3
-        feat = (rng.random((L, F.STATIC_END)) * (rng.random((L, F.STATIC_END)) < 0.3)).astype(np.float32)
+        is_store = rng.random(lanes) < 0.3
+        feat = (rng.random((lanes, F.STATIC_END)) * (rng.random((lanes, F.STATIC_END)) < 0.3)).astype(np.float32)
         feat[:, 7] = is_store
         cur = {
             "feat": torch.from_numpy(feat).to(dev),
-            "addr": torch.from_numpy(rng.integers(0, 20, (L, F.N_ADDR_KEYS)).astype(np.int32)).to(dev),
+            "addr": torch.from_numpy(rng.integers(0, 20, (lanes, F.N_ADDR_KEYS)).astype(np.int32)).to(dev),
             "is_store": torch.from_numpy(is_store).to(dev),
         }
-        lats = np.stack([rng.integers(0, 3, L), rng.integers(1, 48, L), rng.integers(1, 64, L)], 1)
+        lats = np.stack([rng.integers(0, 3, lanes), rng.integers(1, 48, lanes), rng.integers(1, 64, lanes)], 1)
         state = sim.sim_step(state, cur, torch.from_numpy(lats.astype(np.float32)).to(dev), cfg)
     return state, cur
 
@@ -217,9 +223,27 @@ def kernel_phase(torch, dev):
                      replaces="src/repro/kernels/cnn_trunk.py:55",
                      max_abs_err=err2, ms=time_ms(torch, k2), plain_ms=time_ms(torch, p2),
                      bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, chain)))
+    # both keep each output's sum in one thread, k ascending with fmaf
+    check(torch.equal(k1(), out), "fused_step equals cnn_trunk on its assembled input bit for bit")
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"matmul chain {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"matmul chain {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
+
+    # one workload's lanes: the tiles at a tenth of the main path's size
+    lanes = PRED_LANES
+    st, cr = populated_state(torch, sim, dev, lanes=lanes)
+    xs = torch.nn.functional.pad(sim.model_input(st, cr["feat"], cr["addr"], sim.SimConfig()),
+                                 (0, 0, 0, S - (Q + 1)))
+    small = {"fused_step": lambda: ops.fused_step(conv, st, cr["feat"], cr["addr"], seq_padded=S),
+             "cnn_trunk": lambda: ops.cnn_trunk(conv, xs)}
+    check(torch.equal(small["fused_step"](), small["cnn_trunk"]()),
+          f"fused_step equals cnn_trunk bit for bit at L={lanes}")
+    for name, fn in small.items():
+        ms = time_ms(torch, fn)
+        b_ms, b_by = bound(0, trunk_ops(lanes, S, chans))
+        log(f"  {name} at L={lanes}: kernel {ms:.4f} ms, operations bound {b_ms:.4f} ms, "
+            f"{100 * b_ms / ms:.1f}% of it")
     return pcfg, params, rows, x
 
 
@@ -325,7 +349,8 @@ def conv_decode_kernel_phase(torch, dev, params, x):
                      max_abs_err=errs["bfloat16"], **timed[0]))
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
     return rows
 
 
@@ -667,6 +692,30 @@ def decode_exactness_phase(torch, dev, lm):
           f"{FULL_TOL} x max |logit| = {FULL_TOL * scale:.4f}")
 
 
+def ptxas_entries(log):
+    """Per kernel entry in nvcc's -Xptxas -v output: registers, static shared
+    memory, stack frame and spills (stores, loads) in bytes."""
+    entries = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            short = re.search(r"\d+([a-z_0-9]+_kernel)", name)
+            if short:  # the kernel's name, then its mangled template arguments
+                tail = name[short.end(1):]
+                name = short.group(1) + (tail[: tail.find("EE") + 2] if tail.startswith("I") else "")
+            entries.append({"fn": name})
+        elif entries:
+            e = entries[-1]
+            if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line):
+                e["stack"], e["spills"] = int(m.group(1)), (int(m.group(2)), int(m.group(3)))
+            if m := re.search(r"Used (\d+) registers", line):
+                e["regs"] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes smem", line):
+                e["smem"] = int(m.group(1))
+    return entries
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         sys.exit("chip_smoke.py must run from the root of a checkout (src/repro_torch is missing)")
@@ -691,13 +740,16 @@ def main():
     t0 = time.perf_counter()
     built = _build.build()
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s")
-    for name, b in built.items():  # -Xptxas -v: one line pair per compiled kernel
-        regs = [int(w) for line in b.log.splitlines() if "registers" in line
-                for w, nxt in zip(line.split(), line.split()[1:]) if nxt.startswith("registers")]
-        spills = [line.strip() for line in b.log.splitlines()
-                  if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-        log(f"  {name}: {len(regs)} kernel(s), registers {min(regs, default=0)}-{max(regs, default=0)}, "
-            f"spills: {spills or 'none'}")
+    for name, b in built.items():
+        for e in ptxas_entries(b.log):
+            log(f"  {name}: {e['fn']}: {e.get('regs')} registers, {e.get('smem', 0)} bytes static "
+                f"smem, {e.get('stack')} bytes stack, spill stores/loads {e.get('spills')}")
+    for name, arg in (("fused_step", ()), ("cnn_trunk", (50,))):
+        fn = getattr(ctypes.CDLL(str(built[name].path)), f"{name}_smem_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int] * len(arg), ctypes.c_int
+        smem = fn(*arg)
+        log(f"  {name}: {smem} bytes of dynamic shared memory a block, "
+            f"{torch.cuda.get_device_properties(0).multi_processor_count} persistent blocks at most")
 
     pcfg, params, rows, x = kernel_phase(torch, dev)
     rows += conv_decode_kernel_phase(torch, dev, params, x)

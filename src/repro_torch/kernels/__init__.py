@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), their wrappers
 (``ops``), their plain PyTorch versions (``ref``) and their build
-(``_build``). Every Pallas kernel of the reference has its counterpart:
+(``_build``); ``breakdown`` times cut-down copies of the trunk kernels on
+the card. Every Pallas kernel of the reference has its counterpart:
 
   fused_step  — ring-state model-input assembly + the C3 trunk in one
                 kernel (replaces repro/kernels/fused_step.py); the SimNet

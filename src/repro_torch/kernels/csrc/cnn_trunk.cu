@@ -12,58 +12,65 @@
 // of f32 FMAs against ~20 MB read and written once: ~25 us of FMAs at the
 // H100 SXM's ~67 TFLOP/s f32, ~6 us of bytes at 3.35 TB/s.
 //
-// What the design does about it: the TPU kernel kept a 64-lane tile and all
-// weights in VMEM, which does not fit a block's 227 KB of shared memory in
-// f32. Here a block of 256 threads loads 4 lanes' inputs into shared memory
-// (coalesced, no channel pad), runs the three layers from shared memory
-// with register tiles of f32 FMAs, and reads the weights through the
-// read-only cache (L2-resident, shared by all blocks); see trunk_common.cuh.
-
-#include <cuda_runtime.h>
+// What the design does about it (trunk_common.cuh): a persistent block per
+// SM walks tiles of up to 72 (lane, output position) units; a tile's input
+// is one contiguous run of units x 8 x C floats, copied into shared memory
+// by one bulk copy (cp.async.bulk); the weights stream through a
+// shared-memory ring by bulk copies; all warps compute 9 x 8 register tiles
+// (5 x 8 in layer 3) of f32 FMAs from shared memory.
 
 #include "trunk_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(trunk::kThreads, 2)
-cnn_trunk_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                 const float* __restrict__ b1, const float* __restrict__ w2,
-                 const float* __restrict__ b2, const float* __restrict__ w3,
-                 const float* __restrict__ b3, float* __restrict__ out, int B, int S, int C0,
-                 int C1, int C2, int C3, int TB) {
-  extern __shared__ __align__(16) float smem[];
-  float* bufA = smem;
-  float* bufB = smem + trunk::buf_a_floats(TB, S, C0, C2);
-  const int lane0 = blockIdx.x * TB;
-  const int n_lanes = min(TB, B - lane0);
-  const int per_lane = S * C0;
-  const float* src = x + (size_t)lane0 * per_lane;
-  const int live = n_lanes * per_lane;
-  for (int i = threadIdx.x; i < TB * per_lane; i += blockDim.x) {
-    bufA[i] = i < live ? src[i] : 0.f;
+// The tile's input is a contiguous run of units: one bulk copy.
+struct DenseInput {
+  const float* x;
+  int unit_floats;  // 8 x C0
+
+  __device__ void load(int t, long long u0, int n, float* xs, float*, uint64_t* bar) {
+    if (threadIdx.x == 0) {
+      trunk::bulk_load(xs, x + u0 * unit_floats, (unsigned)(n * unit_floats * sizeof(float)), bar);
+    }
+    trunk::mbar_wait(bar, t & 1);
   }
-  __syncthreads();
-  trunk::run_trunk(bufA, bufB, TB, S, C0, C1, C2, C3, w1, b1, w2, b2, w3, b3,
-                   out + (size_t)lane0 * (S / 8) * C3, n_lanes);
+};
+
+__global__ void __launch_bounds__(trunk::kBlockThreads, 1)
+cnn_trunk_kernel(const float* __restrict__ x, trunk::Weights wt, float* __restrict__ out,
+                 long long units, int c0, int umax) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  DenseInput in{x, 8 * c0};
+  trunk::run_tiles(in, smem, trunk::Plan(umax, c0), c0, wt, out, units);
 }
+
+trunk::DeviceCache g_cache[trunk::kMaxDevices];
 
 }  // namespace
 
+// x (B, S, C0), out (B, S/8, C3): f32, contiguous, 16-byte aligned; w1
+// (2 C0, C1), w2 (2 C1, C2), w3 (2 C2, C3) row-major and the biases, all
+// 16-byte aligned. Needs S % 8 == 0, C0 even and the widths the kernel is
+// built for (trunk::C1, C2, C3).
 extern "C" int cnn_trunk_launch(const void* x, const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* w3, const void* b3, void* out,
                                 int B, int S, int C0, int C1, int C2, int C3, void* stream) {
-  if (B <= 0 || S % 8 != 0 || C0 % 2 != 0 || C1 % 4 != 0 || C2 % 4 != 0 || C3 % 2 != 0) {
+  if (B <= 0 || S <= 0 || S % 8 != 0 || C0 <= 0 || C0 % 2 != 0 || C1 != trunk::C1 ||
+      C2 != trunk::C2 || C3 != trunk::C3) {
     return (int)cudaErrorInvalidValue;
   }
-  size_t smem = 0;
-  const int TB = trunk::lanes_per_block(S, C0, C1, C2, &smem);
-  if (TB == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      cnn_trunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int sms = 0, umax = 0;
+  cudaError_t err = trunk::prepare(cnn_trunk_kernel, g_cache, C0, 0, &sms, &umax);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + TB - 1) / TB;
-  cnn_trunk_kernel<<<blocks, trunk::kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w1, (const float*)b1, (const float*)w2, (const float*)b2,
-      (const float*)w3, (const float*)b3, (float*)out, B, S, C0, C1, C2, C3, TB);
+  const long long units = (long long)B * (S / 8);
+  const int blocks = (int)(units < sms ? units : sms);
+  const trunk::Weights wt{{(const float*)w1, (const float*)w2, (const float*)w3},
+                          {(const float*)b1, (const float*)b2, (const float*)b3}};
+  cnn_trunk_kernel<<<blocks, trunk::kBlockThreads, trunk::Plan(umax, C0).bytes,
+                     (cudaStream_t)stream>>>((const float*)x, wt, (float*)out, units, C0, umax);
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory of one block (bytes) for input width c0, for the
+// build log.
+extern "C" int cnn_trunk_smem_bytes(int c0) { return trunk::Plan(trunk::kUnits, c0).bytes; }

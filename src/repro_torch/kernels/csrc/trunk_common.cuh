@@ -1,135 +1,482 @@
-// Shared device code of the k2s2 conv kernels (fused_step.cu, cnn_trunk.cu,
-// conv2s.cu).
+// Shared device code of the C3 trunk kernels (fused_step.cu, cnn_trunk.cu):
+// a persistent grid over sub-lane tiles, with the weights streamed through
+// shared memory by TMA bulk copies.
 //
-// A k2s2 convolution over a (rows, C) activation is one GEMM: rows 2i and
-// 2i+1 side by side form row i of a (rows/2, 2C) matrix, which is exactly
-// the same memory read with a row stride of 2C. So each layer of the trunk
-// is   out[m, n] = relu(b[n] + sum_k A[m, k] * W[k, n])
-// with A the block's activations in shared memory (row-major, M x K) and W
-// the layer's (K x N) weight in device memory (row-major, read through the
-// read-only cache; every block reads the same weights, so they stay in L2).
+// The trunk is three k2s2 convolutions + bias + ReLU. Each of a lane's S/8
+// outputs depends on exactly 8 consecutive input rows, so the work unit is
+// (lane, output position p): u = lane * S/8 + p, whose input is rows
+// 8p..8p+7 (8 x C0 floats) and whose output is row u of the (L, S/8, C3)
+// output. For U units side by side each layer is one GEMM,
+//   out[m, n] = relu(b[n] + sum_k A[m, k] * W[k, n]),
+// with M = 4U, 2U, U rows and K = 2 C0, 2 C1, 2 C2: row m of a layer's A is
+// rows 2m and 2m+1 of the layer below side by side, so the k2s2 pairing is
+// an index map that each epilogue applies when it writes the next A.
 //
-// Each thread owns a register tile of RM rows x CN columns and sums over k
-// in ascending order with fmaf, in f32 (no tensor cores: TF32 or bf16 would
-// break parity with the f32 reference).
+// What bounds the GEMMs: the shared-memory pipe. It hands an SM's threads
+// 128 bytes a cycle, whatever the broadcast (an LDS.128 takes 4 of its
+// cycles for a warp), while the FMA units take 128 FMAs a cycle. A thread
+// with a TM x TN register tile takes TM + TN floats per TM * TN FMAs, so
+// the pipe keeps up only if 4/TM + 4/TN <= 1: the register tile has to be
+// large, and the rows a block holds per pass (M = NRS x TM) with it.
+//
+// Plan of one block (8 compute warps + an issuing warpgroup, one block per
+// SM, persistent): the block takes a contiguous range of units (the ranges
+// of the G blocks differ by at most one unit) and walks it in tiles of at
+// most kUnits = 72 units, split evenly (at the main path's 1024 lanes: one
+// tile of 69 or 70 per SM):
+//
+//   - the tile's input (U x 8 x C0 floats) is copied or assembled into X;
+//   - layer 1 reads X and writes h1 (2U rows of 2 C1 + pad floats);
+//   - layer 2 reads h1 and writes h2 into X, which it has finished;
+//   - layer 3 reads h2 and writes the tile's outputs to device memory;
+//   - the weights stream through a ring of kSlots slabs of kSlabFloats
+//     (16 KB): whole rows of W (K x N row-major, as the wrapper passes it),
+//     64 rows of w1, 32 of w2 or w3 per slab, 14 slabs per tile at the C3
+//     widths. The first thread of a warpgroup of its own (which hands its
+//     registers to the compute warps) issues each slab as a bulk copy
+//     (cp.async.bulk) that completes on the slot's "full" mbarrier; every
+//     compute warp reads it from shared memory, then arrives on the slot's
+//     "empty" mbarrier, and the slab kSlots ahead goes in once all 8 have:
+//     no block-wide barrier stops the FMAs after each slab. The stream runs
+//     on across layers and tiles, so the first slabs land while the tile's
+//     input is loaded.
+//
+// Shared memory at the C3 widths (C0 50, C1 64, C2 128, C3 128), U = 72:
+//   X    72 x 8 x 50 floats                115,200 B   (h2: 72 x 260 floats
+//                                                        = 74,880 B, in X)
+//   h1   144 rows x (128 + 4) floats        76,032 B
+//   ring 2 x 16 KB                          32,768 B
+//   mbarriers                                   64 B
+//   total                                  224,064 B (K2); K1 adds an 8 KB
+// side area (232,256 B) of the 232,448 a block may take: one block per SM,
+// 8 compute warps with up to 232 registers a thread. There is no room for
+// a second X buffer at this tile size; a smaller tile with one (36 units,
+// 4 warps) measured slower, since its register tiles are half as large.
+//
+// Register tiles: TN = 8 columns (two float4 groups, at 4 cg and N/2 + 4 cg)
+// by TM rows (rows rs, rs + NRS, ...) per thread. A warp covers 8 column
+// groups x 4 row slots; NRS = 32 row slots at N = 64, 16 at N = 128. At
+// U = 70: TM = 9, 9, 5 in the three layers (4/TM + 4/TN = 0.94, 0.94,
+// 1.3). TM = ceil(M / NRS) is chosen per tile.
+//
+// Numerics: f32 outside the tensor cores. Each output's sum stays in one
+// thread: the accumulator starts at 0, goes over k in ascending order with
+// fmaf, then adds the bias, then ReLU as y < 0 ? 0 : y (NaN kept, as
+// max(x, 0) in the reference). So both kernels give the same bits for the
+// same input.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <mutex>
+
 namespace trunk {
 
-constexpr int kThreads = 256;  // threads per block
-constexpr int kRows = 9;       // RM: register-tile rows (divides 36, 18, 9)
+constexpr int kWarps = 8;                      // compute warps
+constexpr int kThreads = 32 * kWarps;           // compute threads
+// and a warpgroup whose first thread issues the weight slabs
+constexpr int kBlockThreads = kThreads + 128;
+// registers a thread after the start: the issuing warpgroup hands its
+// share to the compute warps (65,536 a block at most)
+constexpr int kIssueRegs = 40, kComputeRegs = 232;
+static_assert(128 * kIssueRegs + kThreads * kComputeRegs <= 65536, "register file");
+constexpr int kUnits = 72;         // units per tile, at most
+constexpr int kSlabFloats = 4096;  // 16 KB
+constexpr int kSlots = 2;          // slabs in the ring
+constexpr int kBarBytes = 64;      // 2 kSlots + 1 mbarriers, rounded up
+constexpr int kMaxDevices = 64;
 
-template <int CN>
-__device__ __forceinline__ void load_w(const float* __restrict__ p, float (&w)[CN]) {
-  if constexpr (CN == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  } else if constexpr (CN == 2) {
-    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-    w[0] = v.x; w[1] = v.y;
-  } else {
-#pragma unroll
-    for (int c = 0; c < CN; ++c) w[c] = __ldg(p + c);
+// the widths the kernels are built for: the C3 model's
+constexpr int C1 = 64, C2 = 128, C3 = 128;
+
+// A row stride (floats) whose 16-byte count is odd, so that 4 consecutive
+// rows start in 4 different bank groups.
+__host__ __device__ constexpr int padded_ld(int n) { return (n / 4) % 2 ? n : n + 4; }
+constexpr int kLd1 = padded_ld(2 * C1);  // h1 as layer 2's A
+constexpr int kLd2 = padded_ld(2 * C2);  // h2 as layer 3's A
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// Shared-memory layout of a block, in bytes from the start.
+// `side` bytes at the end are the input's own (K1's per-lane scratch).
+struct Plan {
+  int umax;      // units per tile, at most
+  int ring_off, x_off, h1_off, side_off;
+  int bytes;
+
+  __host__ __device__ Plan(int umax_, int c0, int side = 0) : umax(umax_) {
+    const int x = umax * 8 * c0, h2 = umax * kLd2;
+    ring_off = kBarBytes;
+    x_off = ring_off + 4 * kSlots * kSlabFloats;
+    h1_off = x_off + 4 * round4(x > h2 ? x : h2);
+    side_off = h1_off + 4 * 2 * umax * kLd1;
+    bytes = side_off + side;
+  }
+};
+
+// ------------------------------------------------------------ PTX wrappers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void set_max_registers_lower() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void set_max_registers_raise() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// A barrier of the compute threads only (the issuing warpgroup is not in it).
+__device__ __forceinline__ void sync_compute() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A copy that never
+// lands would spin forever; past ~2^28 polls (seconds) the kernel traps, so
+// the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_u32(bar);
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 28)) __trap();
   }
 }
 
-// One k2s2 layer for the whole block. A: (M, K) in shared memory, K % 4 == 0
-// and 16-byte aligned rows. W: (K, N) global, N % CN == 0, CN-aligned.
-// Rows m >= m_store are computed but not stored (the ragged lane edge).
-template <int RM, int CN>
-__device__ __forceinline__ void layer(const float* __restrict__ A, int M, int K,
-                                      const float* __restrict__ W,
-                                      const float* __restrict__ bias, int N,
-                                      float* __restrict__ out, int m_store) {
-  const int ncg = N / CN;
-  const int nrg = (M + RM - 1) / RM;
-  for (int t = threadIdx.x; t < nrg * ncg; t += blockDim.x) {
-    const int n0 = (t % ncg) * CN;
-    const int m0 = (t / ncg) * RM;
-    const float* arow[RM];
-#pragma unroll
-    for (int r = 0; r < RM; ++r) arow[r] = A + min(m0 + r, M - 1) * K;
-    float acc[RM][CN];
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int c = 0; c < CN; ++c) acc[r][c] = 0.f;
+// Orders the block's earlier generic accesses of shared memory before the
+// async proxy's (bulk copies) that follow.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
 
-    for (int k = 0; k < K; k += 4) {
-      float4 a[RM];
-#pragma unroll
-      for (int r = 0; r < RM; ++r) a[r] = *reinterpret_cast<const float4*>(arow[r] + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        float w[CN];
-        load_w<CN>(W + (size_t)(k + kk) * N + n0, w);
-#pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          const float av = kk == 0 ? a[r].x : kk == 1 ? a[r].y : kk == 2 ? a[r].z : a[r].w;
-#pragma unroll
-          for (int c = 0; c < CN; ++c) acc[r][c] = fmaf(av, w[c], acc[r][c]);
-        }
-      }
+// Bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from device memory to shared memory, completing its bytes on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One bulk copy that completes the phase of `bar` (one arrival + its bytes).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  fence_async_shared();
+  mbar_expect_tx(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
+}
+
+// ------------------------------------------------------------ weight ring
+
+struct Weights {
+  const float* w[3];
+  const float* b[3];
+};
+
+// The slab stream of one block: per tile, layer 1's slabs (64 rows of w1,
+// the last one short where 2 c0 is not a multiple of 64), then layer 2's
+// and layer 3's (32 rows each).
+struct Ring {
+  static constexpr int kRows1 = kSlabFloats / C1, kRows2 = kSlabFloats / C2,
+                       kRows3 = kSlabFloats / C3;
+  static constexpr int kCount2 = 2 * C1 / kRows2, kCount3 = 2 * C2 / kRows3;
+  static_assert(2 * C1 % kRows2 == 0 && 2 * C2 % kRows3 == 0, "whole slabs in layers 2, 3");
+
+  float* slots;
+  uint64_t* full;   // per slot: the slab has landed (one arrival + its bytes)
+  uint64_t* empty;  // per slot: every compute warp is done with it (kWarps arrivals)
+  Weights wt;
+  int k1, count1;             // layer 1's depth (2 c0) and slabs
+  int per_tile, total, j;     // slabs a tile, in all, next to read
+
+  __device__ Ring(float* slots_, uint64_t* full_, uint64_t* empty_, const Weights& wt_, int c0,
+                  int tiles)
+      : slots(slots_),
+        full(full_),
+        empty(empty_),
+        wt(wt_),
+        k1(2 * c0),
+        count1((2 * c0 + kRows1 - 1) / kRows1),
+        per_tile(count1 + kCount2 + kCount3),
+        total(tiles * per_tile),
+        j(0) {}
+
+  // one thread: copy slab s of the stream into its slot
+  __device__ void issue(int s) {
+    int q = s % per_tile;
+    const float* src;
+    int floats;
+    if (q < count1) {
+      src = wt.w[0] + q * kRows1 * C1;
+      floats = min(kRows1, k1 - q * kRows1) * C1;
+    } else if ((q -= count1) < kCount2) {
+      src = wt.w[1] + q * kSlabFloats;
+      floats = kSlabFloats;
+    } else {
+      src = wt.w[2] + (q - kCount2) * kSlabFloats;
+      floats = kSlabFloats;
     }
+    bulk_load(slots + (s % kSlots) * kSlabFloats, src, (unsigned)(floats * sizeof(float)),
+              &full[s % kSlots]);
+  }
+
+  // the issuing thread: every slab in turn, each once its slot is free
+  __device__ void produce() {
+    for (int s = 0; s < total; ++s) {
+      if (s >= kSlots) mbar_wait(&empty[s % kSlots], (s / kSlots - 1) & 1);
+      issue(s);
+    }
+  }
+
+  __device__ const float* wait() {
+    mbar_wait(&full[j % kSlots], (j / kSlots) & 1);
+    return slots + (j % kSlots) * kSlabFloats;
+  }
+
+  // this warp is done with slab j
+  __device__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[j % kSlots]);
+    ++j;
+  }
+};
+
+// ------------------------------------------------------------ one layer
+
+// acc[i][c] += A[row i, k0 + k] * W[k, col c] over the `rows` k of a slab,
+// k ascending. w points at the thread's first column in the slab.
+template <int TM, int N>
+__device__ __forceinline__ void slab_fma(const float* (&arow)[TM], int k0,
+                                         const float* __restrict__ w, int rows,
+                                         float (&acc)[TM][8]) {
+#pragma unroll 2
+  for (int k = 0; k < rows; k += 4) {
+    float4 a[TM];
 #pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      if (m0 + r < m_store) {
+    for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(arow[i] + k0 + k);
 #pragma unroll
-        for (int c = 0; c < CN; ++c) {
-          const float y = acc[r][c] + __ldg(bias + n0 + c);
-          // relu that keeps NaN, as max(x, 0) does in the reference
-          out[(size_t)(m0 + r) * N + n0 + c] = y < 0.f ? 0.f : y;
-        }
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 lo = *reinterpret_cast<const float4*>(w + (k + kk) * N);
+      const float4 hi = *reinterpret_cast<const float4*>(w + (k + kk) * N + N / 2);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+        acc[i][0] = fmaf(av, lo.x, acc[i][0]);
+        acc[i][1] = fmaf(av, lo.y, acc[i][1]);
+        acc[i][2] = fmaf(av, lo.z, acc[i][2]);
+        acc[i][3] = fmaf(av, lo.w, acc[i][3]);
+        acc[i][4] = fmaf(av, hi.x, acc[i][4]);
+        acc[i][5] = fmaf(av, hi.y, acc[i][5]);
+        acc[i][6] = fmaf(av, hi.z, acc[i][6]);
+        acc[i][7] = fmaf(av, hi.w, acc[i][7]);
       }
     }
   }
 }
 
-// Shared-memory plan for TB lanes of an (S, C0) input and channels C1, C2:
-// buffer A holds the input, later layer 2's output; buffer B layer 1's.
-// Sizes in floats, rounded to a multiple of 4 so every row stays aligned.
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
-__host__ __device__ inline int buf_a_floats(int TB, int S, int C0, int C2) {
-  const int x = S * C0, h2 = (S / 4) * C2;
-  return round4(TB * (x > h2 ? x : h2));
-}
-__host__ __device__ inline int buf_b_floats(int TB, int S, int C1) {
-  return round4(TB * (S / 2) * C1);
+__device__ __forceinline__ float relu(float y) { return y < 0.f ? 0.f : y; }
+
+// One layer over M rows of A (row stride lda floats, in shared memory),
+// K = the layer's depth, weights from the ring. store(row, col, float4)
+// takes 4 outputs of columns col..col+3 of a row < M.
+// Row slots of a layer of width N: a warp covers 8 column groups x 4 row
+// slots, N / 64 warps side by side across N.
+template <int N>
+__host__ __device__ constexpr int row_slots() {
+  static_assert(N % 64 == 0 && kWarps % (N / 64) == 0, "warps tile N in groups of 64 columns");
+  return kWarps / (N / 64) * 4;
 }
 
-// The three layers after the block's input is in buffer A: layer 3 writes
-// straight to `out` (the block's first output row), storing only the rows
-// of the n_lanes live lanes.
-__device__ __forceinline__ void run_trunk(float* bufA, float* bufB, int TB, int S, int C0,
-                                          int C1, int C2, int C3,
-                                          const float* __restrict__ w1, const float* __restrict__ b1,
-                                          const float* __restrict__ w2, const float* __restrict__ b2,
-                                          const float* __restrict__ w3, const float* __restrict__ b3,
-                                          float* __restrict__ out, int n_lanes) {
-  layer<kRows, 4>(bufA, TB * (S / 2), 2 * C0, w1, b1, C1, bufB, TB * (S / 2));
-  __syncthreads();
-  layer<kRows, 4>(bufB, TB * (S / 4), 2 * C1, w2, b2, C2, bufA, TB * (S / 4));
-  __syncthreads();
-  layer<kRows, 2>(bufA, TB * (S / 8), 2 * C2, w3, b3, C3, out, n_lanes * (S / 8));
-}
+template <int TM, int N, class Store>
+__device__ __forceinline__ void layer_tm(const float* A, int lda, int M, int K, Ring& ring,
+                                         const float* __restrict__ bias, Store store) {
+  constexpr int WPB = N / 64;  // warps side by side across N
+  constexpr int NRS = row_slots<N>();
+  constexpr int ROWS = kSlabFloats / N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cg = (warp % WPB) * 8 + (lane & 7);
+  const int rs = (warp / WPB) * 4 + (lane >> 3);
+  const float* arow[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) arow[i] = A + min(rs + NRS * i, M - 1) * lda;
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
 
-// Lanes per block: the most (up to 4) whose buffers fit in the shared memory
-// a block may take; 0 if not even one lane fits.
-inline int lanes_per_block(int S, int C0, int C1, int C2, size_t* smem_bytes) {
-  int max_smem = 0, dev = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  for (int tb = 4; tb >= 1; --tb) {
-    const size_t bytes =
-        sizeof(float) * (size_t)(buf_a_floats(tb, S, C0, C2) + buf_b_floats(tb, S, C1));
-    if (bytes <= (size_t)max_smem) {
-      *smem_bytes = bytes;
-      return tb;
+  for (int k0 = 0; k0 < K; k0 += ROWS) {
+    const float* w = ring.wait() + cg * 4;
+    slab_fma<TM, N>(arow, k0, w, min(ROWS, K - k0), acc);
+    ring.release();
+  }
+
+  const float4 blo = __ldg(reinterpret_cast<const float4*>(bias + cg * 4));
+  const float4 bhi = __ldg(reinterpret_cast<const float4*>(bias + N / 2 + cg * 4));
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = rs + NRS * i;
+    if (r < M) {
+      store(r, cg * 4,
+            make_float4(relu(acc[i][0] + blo.x), relu(acc[i][1] + blo.y),
+                        relu(acc[i][2] + blo.z), relu(acc[i][3] + blo.w)));
+      store(r, N / 2 + cg * 4,
+            make_float4(relu(acc[i][4] + bhi.x), relu(acc[i][5] + bhi.y),
+                        relu(acc[i][6] + bhi.z), relu(acc[i][7] + bhi.w)));
     }
+  }
+}
+
+// TM = ceil(M / NRS) rows per thread, dispatched over 1..MAXTM (the TM of
+// the largest tile).
+template <int N, int MAXTM, int TM = 1, class Store>
+__device__ __forceinline__ void layer(const float* A, int lda, int M, int K, Ring& ring,
+                                      const float* __restrict__ bias, Store store) {
+  if constexpr (TM < MAXTM) {
+    if (M > TM * row_slots<N>()) {
+      layer<N, MAXTM, TM + 1>(A, lda, M, K, ring, bias, store);
+      return;
+    }
+  }
+  layer_tm<TM, N>(A, lda, M, K, ring, bias, store);
+}
+
+// TM of the largest tile in a layer of M = rows_per_unit x kUnits rows
+template <int N>
+__host__ __device__ constexpr int max_tm(int rows_per_unit) {
+  return (rows_per_unit * kUnits + row_slots<N>() - 1) / row_slots<N>();
+}
+
+// ------------------------------------------------------------ the tile loop
+
+// Input puts a tile's input into X (layer 1's A, (4n, 2 c0)):
+// load(t, u0, n, x, h1, bar) is called by every compute thread and returns
+// when every one may read tile t (units u0..u0+n-1). It may use h1's space
+// (and what follows it) as scratch and the mbarrier `bar` for its copies.
+template <class Input>
+__device__ __forceinline__ void run_tiles(Input& in, unsigned char* smem, const Plan& plan,
+                                          int c0, const Weights& wt, float* __restrict__ out,
+                                          long long units) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // ring full, ring empty, X
+  float* x = reinterpret_cast<float*>(smem + plan.x_off);
+  float* h1 = reinterpret_cast<float*>(smem + plan.h1_off);
+
+  // the block's units, in `tiles` tiles whose sizes differ by at most one
+  const long long u_begin = units * blockIdx.x / gridDim.x;
+  const int n_block = (int)(units * (blockIdx.x + 1) / gridDim.x - u_begin);
+  const int tiles = (n_block + plan.umax - 1) / plan.umax;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * kSlots + 1; ++i) mbar_init(&bars[i], i / kSlots == 1 ? kWarps : 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  Ring ring(reinterpret_cast<float*>(smem + plan.ring_off), bars, bars + kSlots, wt, c0, tiles);
+  if (threadIdx.x >= kThreads) {  // the issuing warpgroup
+    set_max_registers_lower<kIssueRegs>();
+    if (threadIdx.x == kThreads) ring.produce();
+    return;
+  }
+  set_max_registers_raise<kComputeRegs>();
+
+  for (int t = 0; t < tiles; ++t) {
+    const long long u0 = u_begin + (long long)n_block * t / tiles;
+    const int n = (int)(u_begin + (long long)n_block * (t + 1) / tiles - u0);
+    if (t > 0) sync_compute();  // X (h2) of the tile before is spent
+    in.load(t, u0, n, x, h1, &bars[2 * kSlots]);
+    layer<C1, max_tm<C1>(4)>(x, 2 * c0, 4 * n, 2 * c0, ring, wt.b[0], [&](int r, int c, float4 y) {
+      *reinterpret_cast<float4*>(h1 + (r >> 1) * kLd1 + (r & 1) * C1 + c) = y;
+    });
+    sync_compute();
+    float* h2 = x;  // the tile's input is spent
+    layer<C2, max_tm<C2>(2)>(h1, kLd1, 2 * n, 2 * C1, ring, wt.b[1], [&](int r, int c, float4 y) {
+      *reinterpret_cast<float4*>(h2 + (r >> 1) * kLd2 + (r & 1) * C2 + c) = y;
+    });
+    sync_compute();
+    float* o = out + u0 * C3;
+    layer<C3, max_tm<C3>(1)>(h2, kLd2, n, 2 * C2, ring, wt.b[2], [&](int r, int c, float4 y) {
+      *reinterpret_cast<float4*>(o + (size_t)r * C3 + c) = y;
+    });
+  }
+}
+
+// ------------------------------------------------------------ host side
+
+// Per device, queried once: the SM count and the shared memory a block may
+// opt into; and the most dynamic shared memory the kernel was allowed.
+struct DeviceCache {
+  int sms = 0, max_smem = 0, smem_set = 0;
+};
+
+// The largest tile (72, 64, ..., 8 units) whose plan fits; 0 if none does.
+inline int tile_units(int c0, int side, int max_smem) {
+  for (int u = kUnits; u >= 8; u -= 8) {
+    if (Plan(u, c0, side).bytes <= max_smem) return u;
   }
   return 0;
+}
+
+// The current device's SM count and the tile size for input width c0, and
+// the kernel's dynamic shared-memory limit raised to the plan's if it is
+// below. After the first launch of a shape this makes no device query and
+// sets nothing.
+template <class Kernel>
+cudaError_t prepare(Kernel kernel, DeviceCache (&cache)[kMaxDevices], int c0, int side,
+                    int* sms, int* umax) {
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  DeviceCache& c = cache[dev];
+  if (c.sms == 0) {
+    int max_smem = 0, n_sm = 0;
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return err;
+    c.max_smem = max_smem;
+    c.sms = n_sm;
+  }
+  *sms = c.sms;
+  *umax = tile_units(c0, side, c.max_smem);
+  if (*umax == 0) return cudaErrorInvalidValue;
+  const int bytes = Plan(*umax, c0, side).bytes;
+  if (bytes > c.smem_set) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    c.smem_set = bytes;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace trunk

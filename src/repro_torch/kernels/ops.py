@@ -21,6 +21,9 @@ from repro_torch.core.features import N_ADDR_KEYS, N_FEATURES, STATIC_END
 from repro_torch.kernels import _build, ref
 
 launches = {"fused_step": 0, "cnn_trunk": 0, "conv2s": 0, "decode_attn": 0}
+# conv widths (C1, C2, C3) the trunk kernels K1/K2 are compiled for
+# (csrc/trunk_common.cuh): the C3 model's
+TRUNK_WIDTHS = (64, 128, 128)
 
 
 def reset_launches() -> None:
@@ -33,14 +36,20 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _weight_ptrs(weights):
-    """Device addresses of the weights and biases. The kernels load the
-    weights as float4/float2, so each must start 16-byte aligned (a fresh
-    allocation does); activations and state planes are read by element."""
+    """Device addresses of the weights and biases. The kernels copy the
+    weights in 16-byte units (bulk copies, float4/float2 loads), so each
+    must start 16-byte aligned (a fresh allocation does)."""
     flat = [t for wb in weights for t in wb]
     for t in flat:
         if t.data_ptr() % 16:
             raise ValueError("conv weights must be 16-byte aligned; pass a fresh .clone()")
     return [t.data_ptr() for t in flat]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a fresh copy if it does not start 16-byte aligned:
+    the trunk kernels read their inputs with 16-byte bulk copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _weights(layer_params: Sequence[dict]):
@@ -59,9 +68,10 @@ def _check_trunk_shapes(weights, c0: int, seq: int):
         if tuple(w.shape) != shape or tuple(b.shape) != (shape[1],):
             raise ValueError(f"conv{i} weight {tuple(w.shape)} / bias {tuple(b.shape)} "
                              f"do not chain from {c0} input channels")
-    if seq % 8 or c0 % 2 or c1 % 4 or c2 % 4 or c3 % 2:
-        raise ValueError(f"kernel needs seq % 8 == 0, even input channels, C1/C2 % 4 == 0 "
-                         f"and C3 even; got seq={seq}, channels={(c0, c1, c2, c3)}")
+    if seq % 8 or c0 % 2 or (c1, c2, c3) != TRUNK_WIDTHS:
+        raise ValueError(f"kernel needs seq % 8 == 0, even input channels and the C3 widths "
+                         f"{TRUNK_WIDTHS} it is built for; got seq={seq}, "
+                         f"channels={(c0, c1, c2, c3)} (use_kernel=False takes any)")
     return c1, c2, c3
 
 
@@ -118,7 +128,7 @@ def cnn_trunk(layer_params: Sequence[dict], x: torch.Tensor) -> torch.Tensor:
     dev = _cuda_device(x, *[t for wb in weights for t in wb])
     B, N, C = x.shape
     c1, c2, c3 = _check_trunk_shapes(weights, C, N)
-    x = _f32(x)
+    x = _aligned(_f32(x))
     out = torch.empty((B, N // 8, c3), dtype=torch.float32, device=dev)
     if B == 0:
         return out
@@ -148,15 +158,18 @@ def fused_step(layer_params: Sequence[dict], state, cur_feat: torch.Tensor,
                          f"{tuple(cur_addr.shape)} do not match {L} lanes")
     if seq_padded < Q + 1:
         raise ValueError(f"seq_padded={seq_padded} cannot hold 1 + {Q} rows")
+    if Q % 4:
+        raise ValueError(f"kernel copies each lane's planes in 16-byte units: ctx_len={Q} "
+                         "must be a multiple of 4 (use_kernel=False takes any)")
     if state.valid.dtype != torch.bool or state.head.numel() != 1:
         raise ValueError("state.valid must be bool and state.head a scalar")
     c1, c2, c3 = _check_trunk_shapes(weights, N_FEATURES, seq_padded)
     planes = [
-        _f32(state.feat),
-        state.addr.to(torch.int32).contiguous(),
-        _f32(state.resid),
-        _f32(state.exec_lat),
-        _f32(state.store_lat),
+        _aligned(_f32(state.feat)),
+        _aligned(state.addr.to(torch.int32).contiguous()),
+        _aligned(_f32(state.resid)),
+        _aligned(_f32(state.exec_lat)),
+        _aligned(_f32(state.store_lat)),
         state.valid.contiguous(),
         state.head.to(torch.int32).contiguous(),
         _f32(cur_feat),

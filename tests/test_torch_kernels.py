@@ -209,6 +209,21 @@ def test_trunk_kernels_need_the_c3_depth():
         ops.fused_step(layers[:2], state, cur["feat"], cur["addr"], seq_padded=16)
 
 
+def test_trunk_kernels_take_the_c3_widths():
+    """K1/K2 are compiled for the C3 widths: on the card the wrappers refuse
+    other widths before launching, while the plain version takes any."""
+    def wb(chans):
+        return [(lp["w"], lp["b"]) for lp in _torch_layers(_layers(8, chans))]
+
+    assert ops._check_trunk_shapes(wb(CHANS), 50, 72) == ops.TRUNK_WIDTHS == (64, 128, 128)
+    with pytest.raises(ValueError, match="C3 widths"):
+        ops._check_trunk_shapes(wb([50, 32, 64, 64]), 50, 72)
+    with pytest.raises(ValueError, match="seq % 8"):
+        ops._check_trunk_shapes(wb(CHANS), 50, 68)
+    x = torch.zeros((2, 72, 50))
+    assert ops.cnn_trunk(_torch_layers(_layers(8, [50, 32, 64, 64])), x).shape == (2, 9, 64)
+
+
 def test_wrappers_reject_tensors_on_other_devices():
     layers = _torch_layers(_layers(7), device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
@@ -228,8 +243,18 @@ def cuda():
     return torch.device("cuda")
 
 
+def _assembled_input(state, cur, seq_padded):
+    """The (L, seq_padded, 50) input that K1 assembles on chip, built by the
+    plain code: planes in f32, recency view, model input, zero rows."""
+    f32 = state._replace(feat=state.feat.float(), resid=state.resid.float(),
+                         exec_lat=state.exec_lat.float(), store_lat=state.store_lat.float())
+    x = port_sim.build_model_input(port_sim.recency_view(f32), cur["feat"].float(), cur["addr"])
+    return torch.nn.functional.pad(x, (0, 0, 0, seq_padded - x.shape[1]))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N", [(1024, 72), (7, 72), (5, 24)])  # full, ragged lanes, short seq
+@pytest.mark.parametrize("B,N", [(1024, 72), (7, 72), (5, 24),  # full, ragged lanes, short seq
+                                 (1, 72), (1000, 72)])  # fewer units than SMs; 9000 units
 def test_cnn_trunk_kernel_matches_plain(cuda, B, N):
     layers = _torch_layers(_layers(B + N), device=cuda)
     x = torch.from_numpy(np.random.default_rng(B).standard_normal((B, N, 50)).astype(np.float32)).to(cuda)
@@ -243,7 +268,8 @@ def test_cnn_trunk_kernel_matches_plain(cuda, B, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,ctx,state_dtype", [(1024, 64, "float32"), (7, 64, "float32"),
-                                               (9, 16, "float32"), (6, 16, "bfloat16")])
+                                               (9, 16, "float32"), (6, 16, "bfloat16"),
+                                               (1, 64, "float32"), (1000, 64, "float32")])
 def test_fused_step_kernel_matches_plain(cuda, L, ctx, state_dtype):
     layers = _torch_layers(_layers(L + ctx), device=cuda)
     seq_padded = ((ctx + 1 + 7) // 8) * 8
@@ -255,6 +281,62 @@ def test_fused_step_kernel_matches_plain(cuda, L, ctx, state_dtype):
     want = ref.fused_step_ref([(lp["w"], lp["b"]) for lp in layers], state, cur["feat"],
                               cur["addr"], seq_padded=seq_padded)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,ctx,n_steps,state_dtype", [
+    (1024, 64, 133, "float32"),  # the main path's shape; head 5: unit 0 wraps at row 6
+    (1000, 64, 67, "float32"),   # 9000 units, not a whole number of tiles; head 3
+    (7, 64, 64, "float32"),      # head 0: no unit wraps
+    (1, 64, 70, "float32"),      # one lane: 9 units, fewer than the SMs
+    (9, 16, 37, "float32"),      # short sequence (seq_padded 24), head 5
+    (6, 16, 40, "bfloat16"),     # bf16 state planes, head 8
+])
+def test_fused_step_kernel_equals_cnn_trunk_bit_for_bit(cuda, L, ctx, n_steps, state_dtype):
+    """K1 on a ring state and K2 on the input it assembles keep each output's
+    sum in one thread (0, then k ascending with fmaf, then the bias, then
+    ReLU), so they give the same bits whatever order a library would use."""
+    layers = _torch_layers(_layers(L + 3), device=cuda)
+    seq_padded = ((ctx + 1 + 7) // 8) * 8
+    state, cur = _port_state(L, ctx, _step_inputs(L, n_steps, seed=L + 1), cuda, state_dtype)
+    assert int(state.head) == n_steps % ctx
+    got = ops.fused_step(layers, state, cur["feat"], cur["addr"], seq_padded=seq_padded)
+    want = ops.cnn_trunk(layers, _assembled_input(state, cur, seq_padded))
+    torch.cuda.synchronize()
+    assert got.shape == (L, seq_padded // 8, 128) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_trunk_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """K1 copies each lane's planes in 16-byte units (ctx_len % 4 == 0);
+    both are compiled for the C3 widths. The wrappers raise before any
+    launch."""
+    layers = _torch_layers(_layers(13), device=cuda)
+    state, cur = _port_state(3, 6, _step_inputs(3, 9, seed=13), cuda)
+    before = dict(ops.launches)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.fused_step(layers, state, cur["feat"], cur["addr"], seq_padded=8)
+    narrow = _torch_layers(_layers(13, [50, 32, 64, 64]), device=cuda)
+    with pytest.raises(ValueError, match="C3 widths"):
+        ops.cnn_trunk(narrow, torch.zeros((2, 72, 50), device=cuda))
+    assert ops.launches == before
+
+
+@pytest.mark.cuda
+def test_cnn_trunk_kernel_takes_a_bf16_state(cuda):
+    """The engine's bf16-state path: the model input of a bf16 ring state
+    goes to K2, whose wrapper casts it to f32 (as the reference's does)."""
+    L, ctx = 70, 64
+    layers = _torch_layers(_layers(11), device=cuda)
+    state, cur = _port_state(L, ctx, _step_inputs(L, 90, seed=12), cuda, "bfloat16")
+    x = port_sim.model_input(state, cur["feat"], cur["addr"], port_sim.SimConfig(ctx_len=ctx))
+    x = torch.nn.functional.pad(x, (0, 0, 0, 72 - x.shape[1]))
+    assert x.dtype == torch.bfloat16
+    got = ops.cnn_trunk(layers, x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, ops.cnn_trunk(layers, x.float()))
+    torch.testing.assert_close(got, ref.cnn_trunk_ref([(lp["w"], lp["b"]) for lp in layers], x.float()),
+                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
