@@ -17,7 +17,8 @@ launches each makes:
   C3-predicted workloads through ``SimNetEngine.simulate_many`` (K1 on the
   ring layout, K2 on the roll layout);
 - the public kernel API ``kernels.ops.conv2s`` (K3), chained over the C3
-  trunk;
+  trunk, whose result must equal the fused trunk kernel K2's bit for bit
+  (K3 is also timed at each of the three C3 layers);
 - LM decode serving: gemma3-4b at full width (random weights from a
   seed), 8 requests x 2048 prompt tokens prefilled, then 64 greedy steps
   through ``DecodeEngine`` with ``use_kernel=True`` (K4 in every layer),
@@ -248,9 +249,9 @@ def kernel_phase(torch, dev):
 
 
 def conv_decode_kernel_phase(torch, dev, params, x):
-    """K3 at the first C3 layer's shape and K4 at the LM decode path's
-    shape, each against its plain version; the library call beside each
-    is timed only."""
+    """K3 at each of the three C3 layers' shapes and K4 at the LM decode
+    path's shape, each against its plain version; the library call beside
+    each is timed only. K3's row in the JSON line is the first layer's."""
     import numpy as np
     import torch.nn.functional as Fn
 
@@ -258,31 +259,38 @@ def conv_decode_kernel_phase(torch, dev, params, x):
     from repro_torch.kernels import ops, ref
 
     rows = []
-    lp = params["conv0"]
-    B, N, C = x.shape
-    co = lp["w"].shape[1]
-    log(f"[3b] conv2s at the first C3 layer's shape {tuple(x.shape)} -> {co} channels")
+    h = x  # each layer's input is the layer before's output
+    for i in range(3):
+        lp = params[f"conv{i}"]
+        B, N, C = h.shape
+        co = lp["w"].shape[1]
+        log(f"[3b] conv2s at C3 layer {i + 1}'s shape {tuple(h.shape)} -> {co} channels")
 
-    def k3():
-        return ops.conv2s(lp, x)
+        def k3(lp=lp, h=h):
+            return ops.conv2s(lp, h)
 
-    def p3():
-        return ref.conv2s_ref(x, lp["w"], lp["b"])
+        def p3(lp=lp, h=h):
+            return ref.conv2s_ref(h, lp["w"], lp["b"])
 
-    x2 = x.reshape(B, N // 2, 2 * C)
+        def lib3(lp=lp, h2=h.reshape(B, N // 2, 2 * C)):  # matmul + bias + ReLU (yardstick only)
+            return torch.relu(torch.matmul(h2, lp["w"]) + lp["b"])
 
-    def lib3():  # matmul + bias + ReLU on the reshaped input (yardstick only)
-        return torch.relu(torch.matmul(x2, lp["w"]) + lp["b"])
-
-    out = k3()
-    torch.cuda.synchronize()
-    err = compare(torch, "conv2s", out, p3())
-    b_ms, b_by = bound(x.nbytes + lp["w"].nbytes + lp["b"].nbytes + out.nbytes,
-                       2 * B * (N // 2) * 2 * C * co)
-    rows.append(dict(name="conv2s", route="cuda", source="src/repro_torch/kernels/csrc/conv2s.cu",
-                     replaces="src/repro/kernels/conv2s.py:37", max_abs_err=err,
-                     ms=time_ms(torch, k3), plain_ms=time_ms(torch, p3), bound_ms=b_ms,
-                     bound_by=b_by, library_ms=time_ms(torch, lib3)))
+        out = k3()
+        torch.cuda.synchronize()
+        err = compare(torch, f"conv2s layer {i + 1}", out, p3())
+        b_ms, b_by = bound(h.nbytes + lp["w"].nbytes + lp["b"].nbytes + out.nbytes,
+                           2 * B * (N // 2) * 2 * C * co)
+        r = dict(name="conv2s", route="cuda", source="src/repro_torch/kernels/csrc/conv2s.cu",
+                 replaces="src/repro/kernels/conv2s.py:37", max_abs_err=err,
+                 ms=time_ms(torch, k3), plain_ms=time_ms(torch, p3), bound_ms=b_ms,
+                 bound_by=b_by, library_ms=time_ms(torch, lib3))
+        log(f"  conv2s layer {i + 1} {tuple(h.shape)} -> {co}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, matmul + bias + ReLU {r['library_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / r['ms']:.1f}% of the bound, "
+            f"{r['library_ms'] / r['ms']:.2f}x the matmul's speed")
+        if i == 0:
+            rows.append(r)
+        h = out
 
     cfg = get_config(LM_ARCH)
     H, KV, hd, S, Bq = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, LM_CACHE, LM_BATCH
@@ -465,6 +473,9 @@ def conv2s_path_phase(torch, params, x):
           f"conv2s launched once per layer ({counts})")
     compare(torch, "conv2s chain vs plain trunk", h,
             ref.cnn_trunk_ref([(lp["w"], lp["b"]) for lp in layers], x))
+    # both keep each output's sum in one thread, k ascending with fmaf
+    check(torch.equal(h, ops.cnn_trunk(layers, x)),
+          f"conv2s chain equals cnn_trunk bit for bit at L={x.shape[0]}")
     return counts["conv2s"]
 
 
@@ -744,12 +755,24 @@ def main():
         for e in ptxas_entries(b.log):
             log(f"  {name}: {e['fn']}: {e.get('regs')} registers, {e.get('smem', 0)} bytes static "
                 f"smem, {e.get('stack')} bytes stack, spill stores/loads {e.get('spills')}")
+    props = torch.cuda.get_device_properties(0)
     for name, arg in (("fused_step", ()), ("cnn_trunk", (50,))):
         fn = getattr(ctypes.CDLL(str(built[name].path)), f"{name}_smem_bytes")
         fn.argtypes, fn.restype = [ctypes.c_int] * len(arg), ctypes.c_int
         smem = fn(*arg)
         log(f"  {name}: {smem} bytes of dynamic shared memory a block, "
-            f"{torch.cuda.get_device_properties(0).multi_processor_count} persistent blocks at most")
+            f"{props.multi_processor_count} persistent blocks at most")
+    plan = getattr(ctypes.CDLL(str(built["conv2s"].path)), "conv2s_plan")
+    plan.argtypes, plan.restype = [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int
+    max_smem = getattr(props, "shared_memory_per_block_optin", 0) or 232_448
+    for shape in ((L, 72, 50, 64), (L, 36, 64, 128), (L, 18, 128, 128)):
+        v = (ctypes.c_int * 7)()
+        if plan(*shape, props.multi_processor_count, max_smem, v) != 0:
+            raise RuntimeError(f"conv2s has no plan for {shape}")
+        log(f"  conv2s {shape[:3]} -> {shape[3]}: {v[5]} bytes of dynamic shared memory a block "
+            f"(of {max_smem}), {v[1]} blocks of {v[2]} tiles of <= {v[4]} rows, {v[3]} slots a "
+            f"warp group, W padded to {v[0]} columns, "
+            f"{('loaded', 'resident by bulk copies', 'streamed')[v[6]]}")
 
     pcfg, params, rows, x = kernel_phase(torch, dev)
     rows += conv_decode_kernel_phase(torch, dev, params, x)

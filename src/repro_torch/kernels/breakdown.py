@@ -1,17 +1,23 @@
-"""Where the trunk kernels' time goes, on the card.
+"""Where the time of the hand-written conv kernels goes, on the card.
 
-Builds cut-down copies of K1 (``fused_step``) and K2 (``cnn_trunk``) from
-the sources in ``csrc/`` and times each, with CUDA events over 20 launches,
-at the main path's shape (1024 lanes, Q = 64, seq_padded 72) and at one
-workload's 128 lanes:
+Builds cut-down copies of K1 (``fused_step``), K2 (``cnn_trunk``) and K3
+(``conv2s``) from the sources in ``csrc/`` and times each, with CUDA events
+over 20 launches. K1/K2 at the main path's shape (1024 lanes, Q = 64,
+seq_padded 72) and at one workload's 128 lanes; K3 at the three C3 layers
+at 1024 lanes ((1024, 72, 50) -> 64, (1024, 36, 64) -> 128,
+(1024, 18, 128) -> 128):
 
   full          the kernels as they are
-  stream_only   no FMAs: the tile's input, the weight slabs and their waits
+  stream_only   no FMAs: (K1/K2) the tile's input, the weight slabs and
+                their waits; (K3) the input tiles, the weights and the
+                stores
   compute_only  (K2) the FMAs over the first slabs only: no weight traffic
-                after the prologue
+                after the prologue; (K3) the FMAs and the stores, with no
+                input tile copied or waited for
 
-then samples the SM clock and the power draw while K2 runs back to back.
-Run it on a machine with the card, from the root of a checkout:
+then samples the SM clock and the power draw while K2, then K3 at the
+first layer, run back to back. Run it on a machine with the card, from the
+root of a checkout:
 
     PYTHONPATH=src python -m repro_torch.kernels.breakdown
 
@@ -35,42 +41,57 @@ FMA = "    slab_fma<TM, N>(arow, k0, w, min(ROWS, K - k0), acc);\n"
 WAIT = "    const float* w = ring.wait() + cg * 4;\n"
 RELEASE = "    ring.release();\n"
 PRODUCE = "    for (int s = 0; s < total; ++s) {\n"
+K3_FMA = "    slab_fma<TM, NP>(arow, k0, w + cg * 4, min(S::kSlabRows, K - k0), acc);\n"
+K3_COPY = ("    bulk_load(sm.slots + slot * p.slot_floats, p.x + a * p.K, (unsigned)(n_rows * p.K * 4),\n"
+           "              &sm.full[slot]);\n")
+K3_WAIT = "      mbar_wait(&sm.full[slot], use & 1);\n"
+# source edited -> {variant: [(old line, new line)]}, and the kernels built from it
 VARIANTS = {
-    "full": [],
-    "stream_only": [(FMA, "    if (w[0] == 1234.5f) acc[0][0] += 1.f;\n")],
-    "compute_only": [
-        (WAIT, "    if (ring.j < kSlots) ring.wait();\n"
-               "    const float* w = ring.slots + (ring.j % kSlots) * kSlabFloats + cg * 4;\n"),
-        (RELEASE, "    ++ring.j;\n"),
-        (PRODUCE, "    for (int s = 0; s < total && s < kSlots; ++s) {\n"),
-    ],
+    "trunk_common.cuh": ({
+        "full": [],
+        "stream_only": [(FMA, "    if (w[0] == 1234.5f) acc[0][0] += 1.f;\n")],
+        "compute_only": [
+            (WAIT, "    if (ring.j < kSlots) ring.wait();\n"
+                   "    const float* w = ring.slots + (ring.j % kSlots) * kSlabFloats + cg * 4;\n"),
+            (RELEASE, "    ++ring.j;\n"),
+            (PRODUCE, "    for (int s = 0; s < total && s < kSlots; ++s) {\n"),
+        ],
+    }, ("fused_step", "cnn_trunk")),
+    "conv2s.cu": ({
+        "full": [],
+        "stream_only": [(K3_FMA, "    if (load_a4(arow[0], k0).x == 1234.5f) acc[0][0] += 1.f;\n")],
+        "compute_only": [(K3_COPY, ""), (K3_WAIT, "")],
+    }, ("conv2s",)),
 }
 ARGS = {"fused_step": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-        "cnn_trunk": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+        "cnn_trunk": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        "conv2s": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+K3_LAYERS = ((72, 50, 64), (36, 64, 128), (18, 128, 128))  # (N, C, Co) at 1024 lanes
 
 
 def build():
     """{(kernel, variant): C entry point}, one nvcc per library, all at once."""
-    common = (_build.CSRC / "trunk_common.cuh").read_text()
     procs = {}
-    for variant, edits in VARIANTS.items():
-        text = common
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"{variant}: trunk_common.cuh no longer has {old.strip()!r}")
-            text = text.replace(old, new)
-        d = _build.BUILD_DIR / "breakdown" / variant
-        d.mkdir(parents=True, exist_ok=True)
-        for src in _build.CSRC.glob("*.cu*"):
-            shutil.copy(src, d / src.name)
-        (d / "trunk_common.cuh").write_text(text)
-        for kernel in ("fused_step", "cnn_trunk"):
-            if kernel == "fused_step" and variant == "compute_only":
-                continue
-            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(d / f"{kernel}.so"),
-                   str(d / f"{kernel}.cu")]
-            procs[kernel, variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                       stderr=subprocess.STDOUT, text=True), d)
+    for source, (variants, kernels) in VARIANTS.items():
+        original = (_build.CSRC / source).read_text()
+        for variant, edits in variants.items():
+            text = original
+            for old, new in edits:
+                if old not in text:
+                    raise RuntimeError(f"{variant}: {source} no longer has {old.strip()!r}")
+                text = text.replace(old, new)
+            d = _build.BUILD_DIR / "breakdown" / source.split(".")[0] / variant
+            d.mkdir(parents=True, exist_ok=True)
+            for src in _build.CSRC.glob("*.cu*"):
+                shutil.copy(src, d / src.name)
+            (d / source).write_text(text)
+            for kernel in kernels:
+                if kernel == "fused_step" and variant == "compute_only":
+                    continue
+                cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(d / f"{kernel}.so"),
+                       str(d / f"{kernel}.cu")]
+                procs[kernel, variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                           stderr=subprocess.STDOUT, text=True), d)
     entries = {}
     for (kernel, variant), (proc, d) in procs.items():
         log, _ = proc.communicate()
@@ -121,6 +142,30 @@ def ring_state(lanes, q=64, steps=100, seed=0):
                                      cur["addr"])]
 
 
+def checked(fn, args):
+    def run():
+        if fn(*args):
+            raise RuntimeError("launch failed")
+    return run
+
+
+def clock_and_power(what, run, seconds=3.0):
+    """Runs ``run`` (200 launches a call) back to back for ``seconds`` while
+    nvidia-smi samples the SM clock and the power draw every 250 ms."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader",
+                            "-lms", "250"], stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.time()
+        while time.time() - t0 < seconds:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+    samples = smi.communicate()[0].split("\n")
+    print(f"{what} back to back for {seconds:.0f} s, SM clock and power every 250 ms:",
+          " | ".join(s.strip() for s in samples if s.strip()), flush=True)
+
+
 def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
@@ -139,29 +184,31 @@ def main():
         for (kernel, variant), fn in entries.items():
             if kernel == "cnn_trunk":
                 args = (x.data_ptr(), *w, out.data_ptr(), lanes, 72, 50, 64, 128, 128, stream)
-            else:
+            elif kernel == "fused_step":
                 args = (*planes, *w, out.data_ptr(), lanes, 64, 72, 64, 128, 128, stream)
+            else:
+                continue
+            print(f"L={lanes} {kernel} {variant}: {time_us(checked(fn, args)):.1f} us", flush=True)
 
-            def run(fn=fn, args=args):
-                if fn(*args):
-                    raise RuntimeError("launch failed")
-
-            print(f"L={lanes} {kernel} {variant}: {time_us(run):.1f} us", flush=True)
+    dev = torch.cuda.current_device()
+    k3_args = []
+    for (n, c, co), (wl, bl) in zip(K3_LAYERS, weights):
+        x = torch.randn(1024, n, c, device="cuda", generator=g)
+        out = torch.empty(1024, n // 2, co, device="cuda")
+        k3_args.append(((x, out), (x.data_ptr(), wl.data_ptr(), bl.data_ptr(), out.data_ptr(),
+                                   1024, n, c, co, dev, stream)))
+        for variant in VARIANTS["conv2s.cu"][0]:
+            fn = entries["conv2s", variant]
+            print(f"conv2s (1024, {n}, {c}) -> {co} {variant}: "
+                  f"{time_us(checked(fn, k3_args[-1][1])):.1f} us", flush=True)
 
     full = entries["cnn_trunk", "full"]
     x = torch.randn(1024, 72, 50, device="cuda", generator=g)
     out = torch.empty(1024, 9, 128, device="cuda")
-    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader",
-                            "-lms", "250"], stdout=subprocess.PIPE, text=True)
-    t0 = time.time()
-    while time.time() - t0 < 3.0:
-        for _ in range(200):
-            full(x.data_ptr(), *w, out.data_ptr(), 1024, 72, 50, 64, 128, 128, stream)
-        torch.cuda.synchronize()
-    smi.terminate()
-    samples = smi.communicate()[0].split("\n")
-    print("cnn_trunk back to back for 3 s, SM clock and power every 250 ms:",
-          " | ".join(s.strip() for s in samples if s.strip()))
+    trunk_run = checked(full, (x.data_ptr(), *w, out.data_ptr(), 1024, 72, 50, 64, 128, 128, stream))
+    clock_and_power("cnn_trunk", lambda: [trunk_run() for _ in range(200)])
+    k3_run = checked(entries["conv2s", "full"], k3_args[0][1])
+    clock_and_power("conv2s (1024, 72, 50) -> 64", lambda: [k3_run() for _ in range(200)])
 
 
 if __name__ == "__main__":

@@ -12,12 +12,9 @@
 // rows 2m and 2m+1 of the layer below side by side, so the k2s2 pairing is
 // an index map that each epilogue applies when it writes the next A.
 //
-// What bounds the GEMMs: the shared-memory pipe. It hands an SM's threads
-// 128 bytes a cycle, whatever the broadcast (an LDS.128 takes 4 of its
-// cycles for a warp), while the FMA units take 128 FMAs a cycle. A thread
-// with a TM x TN register tile takes TM + TN floats per TM * TN FMAs, so
-// the pipe keeps up only if 4/TM + 4/TN <= 1: the register tile has to be
-// large, and the rows a block holds per pass (M = NRS x TM) with it.
+// What bounds the GEMMs: the shared-memory pipe (sm90.cuh): the register
+// tile has to be large, and the rows a block holds per pass (M = NRS x TM)
+// with it.
 //
 // Plan of one block (8 compute warps + an issuing warpgroup, one block per
 // SM, persistent): the block takes a contiguous range of units (the ranges
@@ -59,11 +56,9 @@
 // U = 70: TM = 9, 9, 5 in the three layers (4/TM + 4/TN = 0.94, 0.94,
 // 1.3). TM = ceil(M / NRS) is chosen per tile.
 //
-// Numerics: f32 outside the tensor cores. Each output's sum stays in one
-// thread: the accumulator starts at 0, goes over k in ascending order with
-// fmaf, then adds the bias, then ReLU as y < 0 ? 0 : y (NaN kept, as
-// max(x, 0) in the reference). So both kernels give the same bits for the
-// same input.
+// Numerics: as sm90.cuh says (each output's sum in one thread, k
+// ascending with fmaf, then the bias, then ReLU), so both kernels give the
+// same bits for the same input.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,10 +66,12 @@
 #include <cstdint>
 #include <mutex>
 
+#include "sm90.cuh"
+
 namespace trunk {
 
-constexpr int kWarps = 8;                      // compute warps
-constexpr int kThreads = 32 * kWarps;           // compute threads
+using namespace sm90;
+
 // and a warpgroup whose first thread issues the weight slabs
 constexpr int kBlockThreads = kThreads + 128;
 // registers a thread after the start: the issuing warpgroup hands its
@@ -82,10 +79,8 @@ constexpr int kBlockThreads = kThreads + 128;
 constexpr int kIssueRegs = 40, kComputeRegs = 232;
 static_assert(128 * kIssueRegs + kThreads * kComputeRegs <= 65536, "register file");
 constexpr int kUnits = 72;         // units per tile, at most
-constexpr int kSlabFloats = 4096;  // 16 KB
 constexpr int kSlots = 2;          // slabs in the ring
 constexpr int kBarBytes = 64;      // 2 kSlots + 1 mbarriers, rounded up
-constexpr int kMaxDevices = 64;
 
 // the widths the kernels are built for: the C3 model's
 constexpr int C1 = 64, C2 = 128, C3 = 128;
@@ -115,20 +110,7 @@ struct Plan {
   }
 };
 
-// ------------------------------------------------------------ PTX wrappers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
+// ------------------------------------------------------------ roles
 
 template <int N>
 __device__ __forceinline__ void set_max_registers_lower() {
@@ -144,55 +126,6 @@ __device__ __forceinline__ void sync_compute() {
   asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
 }
 
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A copy that never
-// lands would spin forever; past ~2^28 polls (seconds) the kernel traps, so
-// the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t a = smem_u32(bar);
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1u << 28)) __trap();
-  }
-}
-
-// Orders the block's earlier generic accesses of shared memory before the
-// async proxy's (bulk copies) that follow.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// Bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
-// from device memory to shared memory, completing its bytes on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// One bulk copy that completes the phase of `bar` (one arrival + its bytes).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  fence_async_shared();
-  mbar_expect_tx(bar, bytes);
-  bulk_copy(dst, src, bytes, bar);
-}
-
 // ------------------------------------------------------------ weight ring
 
 struct Weights {
@@ -203,30 +136,24 @@ struct Weights {
 // The slab stream of one block: per tile, layer 1's slabs (64 rows of w1,
 // the last one short where 2 c0 is not a multiple of 64), then layer 2's
 // and layer 3's (32 rows each).
-struct Ring {
+struct Ring : SlabRing<kSlots> {
   static constexpr int kRows1 = kSlabFloats / C1, kRows2 = kSlabFloats / C2,
                        kRows3 = kSlabFloats / C3;
   static constexpr int kCount2 = 2 * C1 / kRows2, kCount3 = 2 * C2 / kRows3;
   static_assert(2 * C1 % kRows2 == 0 && 2 * C2 % kRows3 == 0, "whole slabs in layers 2, 3");
 
-  float* slots;
-  uint64_t* full;   // per slot: the slab has landed (one arrival + its bytes)
-  uint64_t* empty;  // per slot: every compute warp is done with it (kWarps arrivals)
   Weights wt;
   int k1, count1;             // layer 1's depth (2 c0) and slabs
-  int per_tile, total, j;     // slabs a tile, in all, next to read
+  int per_tile, total;        // slabs a tile, in all
 
   __device__ Ring(float* slots_, uint64_t* full_, uint64_t* empty_, const Weights& wt_, int c0,
                   int tiles)
-      : slots(slots_),
-        full(full_),
-        empty(empty_),
+      : SlabRing<kSlots>{slots_, full_, empty_, 0},
         wt(wt_),
         k1(2 * c0),
         count1((2 * c0 + kRows1 - 1) / kRows1),
         per_tile(count1 + kCount2 + kCount3),
-        total(tiles * per_tile),
-        j(0) {}
+        total(tiles * per_tile) {}
 
   // one thread: copy slab s of the stream into its slot
   __device__ void issue(int s) {
@@ -250,58 +177,13 @@ struct Ring {
   // the issuing thread: every slab in turn, each once its slot is free
   __device__ void produce() {
     for (int s = 0; s < total; ++s) {
-      if (s >= kSlots) mbar_wait(&empty[s % kSlots], (s / kSlots - 1) & 1);
+      refill_wait(s);
       issue(s);
     }
-  }
-
-  __device__ const float* wait() {
-    mbar_wait(&full[j % kSlots], (j / kSlots) & 1);
-    return slots + (j % kSlots) * kSlabFloats;
-  }
-
-  // this warp is done with slab j
-  __device__ void release() {
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[j % kSlots]);
-    ++j;
   }
 };
 
 // ------------------------------------------------------------ one layer
-
-// acc[i][c] += A[row i, k0 + k] * W[k, col c] over the `rows` k of a slab,
-// k ascending. w points at the thread's first column in the slab.
-template <int TM, int N>
-__device__ __forceinline__ void slab_fma(const float* (&arow)[TM], int k0,
-                                         const float* __restrict__ w, int rows,
-                                         float (&acc)[TM][8]) {
-#pragma unroll 2
-  for (int k = 0; k < rows; k += 4) {
-    float4 a[TM];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(arow[i] + k0 + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 lo = *reinterpret_cast<const float4*>(w + (k + kk) * N);
-      const float4 hi = *reinterpret_cast<const float4*>(w + (k + kk) * N + N / 2);
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
-        acc[i][0] = fmaf(av, lo.x, acc[i][0]);
-        acc[i][1] = fmaf(av, lo.y, acc[i][1]);
-        acc[i][2] = fmaf(av, lo.z, acc[i][2]);
-        acc[i][3] = fmaf(av, lo.w, acc[i][3]);
-        acc[i][4] = fmaf(av, hi.x, acc[i][4]);
-        acc[i][5] = fmaf(av, hi.y, acc[i][5]);
-        acc[i][6] = fmaf(av, hi.z, acc[i][6]);
-        acc[i][7] = fmaf(av, hi.w, acc[i][7]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float relu(float y) { return y < 0.f ? 0.f : y; }
 
 // One layer over M rows of A (row stride lda floats, in shared memory),
 // K = the layer's depth, weights from the ring. store(row, col, float4)
@@ -395,7 +277,7 @@ __device__ __forceinline__ void run_tiles(Input& in, unsigned char* smem, const 
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2 * kSlots + 1; ++i) mbar_init(&bars[i], i / kSlots == 1 ? kWarps : 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
   Ring ring(reinterpret_cast<float*>(smem + plan.ring_off), bars, bars + kSlots, wt, c0, tiles);

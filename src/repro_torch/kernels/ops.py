@@ -24,6 +24,13 @@ launches = {"fused_step": 0, "cnn_trunk": 0, "conv2s": 0, "decode_attn": 0}
 # conv widths (C1, C2, C3) the trunk kernels K1/K2 are compiled for
 # (csrc/trunk_common.cuh): the C3 model's
 TRUNK_WIDTHS = (64, 128, 128)
+# K3 (csrc/conv2s.cu) holds W, its columns padded to 64, 128 or 256, in
+# shared memory, or (Co % 4 == 0) a 32 KB ring of it, beside 512 bytes of
+# mbarriers, the padded bias and a slot of at least one input row for each
+# of its 8, 4 or 2 warp groups, within the 232,448 bytes an H100 block may
+# opt into.
+CONV2S_MAX_CO = 256
+CONV2S_SMEM_BYTES = 232_448
 
 
 def reset_launches() -> None:
@@ -48,7 +55,7 @@ def _weight_ptrs(weights):
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself, or a fresh copy if it does not start 16-byte aligned:
-    the trunk kernels read their inputs with 16-byte bulk copies."""
+    the kernels read their inputs with 16-byte bulk copies."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -73,6 +80,25 @@ def _check_trunk_shapes(weights, c0: int, seq: int):
                          f"{TRUNK_WIDTHS} it is built for; got seq={seq}, "
                          f"channels={(c0, c1, c2, c3)} (use_kernel=False takes any)")
     return c1, c2, c3
+
+
+def _check_conv2s_widths(c: int, co: int) -> None:
+    """Raise ValueError if K3 cannot hold a layer of these widths: more
+    than CONV2S_MAX_CO output channels, or neither W (2C x Co, Co padded to
+    64, 128 or 256) nor, where Co % 4 == 0, its 32 KB ring fitting in
+    shared memory beside one input row for each warp group."""
+    if co > CONV2S_MAX_CO:
+        raise ValueError(f"conv2s kernel takes Co <= {CONV2S_MAX_CO} output channels, got {co}")
+    np_ = next(n for n in (64, 128, 256) if co <= n)
+    groups = 8 // (np_ // 64)
+    w_floats = 2 * 4096 if co % 4 == 0 else 2 * c * np_
+    need = 512 + 4 * (w_floats + np_ + groups * 2 * c)
+    if need > CONV2S_SMEM_BYTES:
+        held = "a 32 KB ring of W" if co % 4 == 0 else f"W (2C x {np_} floats)"
+        raise ValueError(
+            f"conv2s kernel holds {held}, the bias and one input row for each of its "
+            f"{groups} warp groups in shared memory: {need} bytes for C={c}, Co={co}, past "
+            f"the {CONV2S_SMEM_BYTES} a block may take")
 
 
 def _cuda_device(*tensors: torch.Tensor) -> torch.device:
@@ -110,11 +136,13 @@ def conv2s(params: dict, x: torch.Tensor) -> torch.Tensor:
                          f"{C} input channels")
     if N % 2 or C % 2 or co % 2:
         raise ValueError(f"kernel needs N, C and Co even; got N={N}, C={C}, Co={co}")
-    x = x.contiguous()
+    _check_conv2s_widths(C, co)
+    x = _aligned(x.contiguous())
     out = torch.empty((B, N // 2, co), dtype=torch.float32, device=dev)
-    if B == 0:
+    if out.numel() == 0:
         return out
-    _launch("conv2s", dev, x.data_ptr(), *_weight_ptrs([(w, b)]), out.data_ptr(), B, N, C, co)
+    _launch("conv2s", dev, x.data_ptr(), *_weight_ptrs([(w, b)]), out.data_ptr(), B, N, C, co,
+            dev.index)
     return out
 
 

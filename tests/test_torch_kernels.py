@@ -113,7 +113,11 @@ def test_plain_fused_step_matches_reference(ref_ops, L, ctx):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("B,N,C,Co", [(64, 112, 50, 64), (7, 8, 16, 32), (70, 56, 64, 128)])
+@pytest.mark.parametrize("B,N,C,Co", [(64, 112, 50, 64), (7, 8, 16, 32), (70, 56, 64, 128),
+                                     # the three C3 layers, and a lane longer than
+                                     # shared memory (1024 x 64 floats)
+                                     (3, 72, 50, 64), (3, 36, 64, 128), (3, 18, 128, 128),
+                                     (2, 1024, 64, 64)])
 def test_plain_conv2s_matches_reference(ref_ops, B, N, C, Co):
     import jax.numpy as jnp
 
@@ -222,6 +226,21 @@ def test_trunk_kernels_take_the_c3_widths():
         ops._check_trunk_shapes(wb(CHANS), 50, 68)
     x = torch.zeros((2, 72, 50))
     assert ops.cnn_trunk(_torch_layers(_layers(8, [50, 32, 64, 64])), x).shape == (2, 9, 64)
+
+
+def test_conv2s_kernel_width_limit():
+    """K3 holds, in the 232,448 bytes of shared memory a block may take, W
+    (Co padded to 64/128/256) or, where Co % 4 == 0, a 32 KB ring of it,
+    beside one input row for each of its 8/4/2 warp groups: C <= 3108 at
+    Co = 64, C <= 402 at Co = 30; Co is at most 256. The wrappers check
+    this before launching; N (the sequence) and B are not limited."""
+    for c, co in ((3108, 64), (6208, 128), (12384, 256), (402, 30), (218, 126), (110, 130),
+                  (50, 64), (2, 2)):
+        ops._check_conv2s_widths(c, co)
+    for c, co, what in ((3110, 64, "ring"), (6210, 128, "ring"), (12386, 256, "ring"),
+                        (404, 30, "W"), (220, 126, "W"), (112, 130, "W"), (50, 258, "Co <= 256")):
+        with pytest.raises(ValueError, match=what):
+            ops._check_conv2s_widths(c, co)
 
 
 def test_wrappers_reject_tensors_on_other_devices():
@@ -339,18 +358,60 @@ def test_cnn_trunk_kernel_takes_a_bf16_state(cuda):
                                rtol=1e-4, atol=1e-4)
 
 
+def _conv2s_inputs(B, N, C, Co, seed, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, N, C)).astype(np.float32)).to(device)
+    p = {"w": torch.from_numpy((rng.standard_normal((2 * C, Co)) * 0.1).astype(np.float32)).to(device),
+         "b": torch.from_numpy((rng.standard_normal(Co) * 0.1).astype(np.float32)).to(device)}
+    return x, p
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,C,Co", [(1024, 72, 50, 64), (7, 72, 50, 64), (5, 8, 16, 30), (3, 24, 64, 128)])
+@pytest.mark.parametrize("B,N,C,Co", [
+    (1024, 72, 50, 64), (7, 72, 50, 64),      # the three C3 layers at L = 1024 and 7
+    (1024, 36, 64, 128), (7, 36, 64, 128),
+    (1024, 18, 128, 128), (7, 18, 128, 128),
+    (5, 8, 16, 30), (3, 24, 64, 128),         # W padded to 64 columns; few rows
+    (2, 1024, 64, 64),                        # a lane of 256 KB: past one block's shared memory
+    (10240, 72, 50, 64),                      # 10 tiles a warp: its 2 slots are reused
+    (4, 6, 100, 200), (3, 8, 60, 130),        # Co padded to 256: W by row copies; W loaded
+    (3, 10, 444, 64), (2, 6, 300, 200),       # W streamed through its ring; by row copies
+    (4096, 18, 200, 128),                     # W streamed, 3 rounds of tiles a block
+])
 def test_conv2s_kernel_matches_plain(cuda, B, N, C, Co):
-    rng = np.random.default_rng(B + Co)
-    x = torch.from_numpy(rng.standard_normal((B, N, C)).astype(np.float32)).to(cuda)
-    p = {"w": torch.from_numpy((rng.standard_normal((2 * C, Co)) * 0.1).astype(np.float32)).to(cuda),
-         "b": torch.from_numpy((rng.standard_normal(Co) * 0.1).astype(np.float32)).to(cuda)}
+    """f32 on both sides (TF32 off), sums in another order: rtol=atol=2e-5."""
+    x, p = _conv2s_inputs(B, N, C, Co, B + Co, cuda)
     before = ops.launches["conv2s"]
     got = ops.conv2s(p, x)
     torch.cuda.synchronize()
     assert ops.launches["conv2s"] == before + 1
-    torch.testing.assert_close(got, ref.conv2s_ref(x, p["w"], p["b"]), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, ref.conv2s_ref(x, p["w"], p["b"]), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1024, 128])
+def test_conv2s_chain_equals_cnn_trunk_bit_for_bit(cuda, L):
+    """K3 over the three C3 layers and K2 keep each output's sum in one
+    thread (0, k ascending with fmaf, bias, ReLU): the same bits."""
+    layers = _torch_layers(_layers(L + 1), device=cuda)
+    x = torch.from_numpy(np.random.default_rng(L).standard_normal((L, 72, 50)).astype(np.float32)).to(cuda)
+    h = x
+    for lp in layers:
+        h = ops.conv2s(lp, h)
+    want = ops.cnn_trunk(layers, x)
+    torch.cuda.synchronize()
+    assert h.shape == (L, 9, 128) and torch.equal(h, want)
+
+
+@pytest.mark.cuda
+def test_conv2s_kernel_refuses_widths_past_its_limit(cuda):
+    """W past shared memory, or Co > 256, raise ValueError before any launch."""
+    before = ops.launches["conv2s"]
+    for C, Co in ((3110, 64), (404, 30), (50, 258)):
+        x, p = _conv2s_inputs(2, 4, C, Co, C, cuda)
+        with pytest.raises(ValueError, match="conv2s kernel"):
+            ops.conv2s(p, x)
+    assert ops.launches["conv2s"] == before
 
 
 @pytest.mark.cuda
