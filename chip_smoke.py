@@ -14,15 +14,21 @@ K2 are also timed); and drives the paths that run them, counting the
 launches each makes:
 
 - the SimNet simulator: teacher-forced exactness, then a pack of
-  C3-predicted workloads through ``SimNetEngine.simulate_many`` (K1 on the
-  ring layout, K2 on the roll layout);
+  C3-predicted workloads, its params loaded from a ``PredictorArtifact``
+  the port writes, through ``SimNetEngine.simulate_many`` (K1 on the ring
+  layout, K2 on the roll layout), whose chunks run as cached CUDA graph
+  programs: each route's graph totals held to an eager pass bit for bit,
+  graph and eager speed side by side, the builds, two engines of one kind
+  with different weights through one graph, and profiles of eager steps
+  beside graph replays;
 - the public kernel API ``kernels.ops.conv2s`` (K3), chained over the C3
   trunk, whose result must equal the fused trunk kernel K2's bit for bit
   (K3 is also timed at each of the three C3 layers);
 - LM decode serving: gemma3-4b at full width (random weights from a
   seed), 8 requests x 2048 prompt tokens prefilled, then 64 greedy steps
-  through ``DecodeEngine`` with ``use_kernel=True`` (K4 in every layer),
-  and the decode path's exactness (kernel vs plain, CUDA vs CPU).
+  through ``DecodeEngine`` with ``use_kernel=True`` (K4 in every layer;
+  each step a replay of a CUDA graph), beside the eager steps, and the
+  decode path's exactness (graph vs eager, kernel vs plain, CUDA vs CPU).
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -38,6 +44,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -406,54 +413,177 @@ def teacher_forced_phase(torch, dev):
 
 
 def predicted_phase(torch, dev, pcfg, params):
-    """The main path: a C3-predicted pack through the engine."""
+    """The main path: a C3-predicted pack through the engine's cached
+    graph programs, its params loaded from a predictor artifact on disk."""
     import numpy as np
 
+    from repro_torch.checkpoint import PredictorArtifact
     from repro_torch.core.simulator import SimConfig
     from repro_torch.kernels import ops
     from repro_torch.serving.simnet_engine import SimNetEngine
 
     log(f"[5] predicted main path: {len(PRED_BENCHES)} workloads x {PRED_LANES} lanes "
-        f"x {PRED_STEPS} steps, c3 at full width")
+        f"x {PRED_STEPS} steps, c3 at full width, through the cached graph programs")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        PredictorArtifact(params, pcfg, SimConfig(ctx_len=pcfg.ctx_len),
+                          metadata={"seed": SEED}).save(tmp)
+        art = PredictorArtifact.load(tmp, device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(tensors(art.params), tensors(params)))
+    check(same and art.pcfg == pcfg and art.sim_cfg == SimConfig(ctx_len=pcfg.ctx_len),
+          "params and configs loaded from a PredictorArtifact written by the port, bit for bit")
     t0 = time.perf_counter()
     traces, arrays = make_traces([(n, PRED_LANES * PRED_STEPS) for n in PRED_BENCHES])
     log(f"  DES traces made in {time.perf_counter() - t0:.1f} s")
-    launches = {}
+    launches, routes = {}, {}
 
-    def run(sim_cfg, use_kernel, timeit):
-        eng = SimNetEngine(params, pcfg, sim_cfg, use_kernel=use_kernel, device=dev)
+    def run(name, sim_cfg, use_kernel, timeit, predicted=True):
+        eng = (SimNetEngine(art.params, art.pcfg, sim_cfg, use_kernel=use_kernel, device=dev)
+               if predicted else SimNetEngine(sim_cfg=sim_cfg, device=dev))
         ops.reset_launches()
         res = eng.simulate_many(arrays, n_lanes=PRED_LANES, chunk=PRED_STEPS, timeit=timeit)
         counts = dict(ops.launches)
-        log(f"  layout={sim_cfg.layout} use_kernel={use_kernel}: "
-            f"throughput_ips={res['throughput_ips']:.1f} seconds={res['seconds']:.3f} "
+        log(f"  {name} (layout={sim_cfg.layout} use_kernel={use_kernel}): "
+            f"throughput_ips={res['throughput_ips']:.1f} seconds={res['seconds']:.4f} "
             f"first_call_seconds={res['first_call_seconds']:.3f} n_steps={res['n_steps']} "
-            f"n_lanes={res['n_lanes']} launches={counts}")
+            f"n_lanes={res['n_lanes']} cache={res['cache']} launches={counts}")
         check(np.isfinite(res["workload_cycles"]).all()
               and res["workload_cycles"].shape == (len(PRED_BENCHES),), "totals finite, one per workload")
+        routes[name] = (eng, res)
         return res, counts
 
-    ring, counts = run(SimConfig(), True, True)
+    ring, counts = run("ring+fused_step", art.sim_cfg, True, True)
     passes = 2  # timeit streams the pack twice
     check(counts["fused_step"] == passes * ring["n_steps"] and counts["cnn_trunk"] == 0,
           f"fused_step launched once per step ({counts['fused_step']} = {passes} x {ring['n_steps']})")
     launches["fused_step"] = counts["fused_step"]
-    roll, counts = run(SimConfig(layout="roll"), True, False)
+    roll, counts = run("roll+cnn_trunk", SimConfig(layout="roll"), True, False)
     check(counts["cnn_trunk"] == roll["n_steps"] > 0 and counts["fused_step"] == 0,
           f"cnn_trunk launched once per step on the roll path ({counts['cnn_trunk']})")
     launches["cnn_trunk"] = counts["cnn_trunk"]
-    plain, counts = run(SimConfig(), False, False)
+    plain, counts = run("plain", art.sim_cfg, False, False)
     check(sum(counts.values()) == 0, "use_kernel=False launches no kernel")
-    tf = SimNetEngine(device=dev).simulate_many(arrays, n_lanes=PRED_LANES, chunk=PRED_STEPS,
-                                                timeit=True)
-    log(f"  teacher-forced, same pack: throughput_ips={tf['throughput_ips']:.1f} "
-        f"seconds={tf['seconds']:.3f}")
+    run("teacher-forced", SimConfig(), False, True, predicted=False)
     for name, res in (("ring+fused_step", ring), ("roll+cnn_trunk", roll)):
         rel = np.abs(res["workload_cycles"] - plain["workload_cycles"]) / plain["workload_cycles"]
         log(f"  {name}: cycles {res['workload_cycles'].tolist()}")
         log(f"  plain torch:     cycles {plain['workload_cycles'].tolist()}")
         check(rel.max() < PRED_RTOL, f"{name} within {PRED_RTOL} of plain (max rel diff {rel.max():.3e})")
-    return ring, launches, arrays
+    return routes, launches, arrays
+
+
+def eager_pass(torch, eng, arrays, n_lanes, chunk):
+    """``simulate_many(timeit=True)`` of ``eng`` without its program: the
+    pack staged on the card, then two passes of `_run_chunk`, eagerly.
+    Returns the numbers the engine reports, and the totals."""
+    import numpy as np
+
+    from repro_torch.core.simulator import (init_state, pack_workloads, packed_tensors,
+                                            pad_packed_lanes, workload_totals)
+    from repro_torch.serving.compile_cache import lane_bucket
+
+    t_start = time.perf_counter()
+    packed = pack_workloads(arrays, n_lanes, eng.sim_cfg, pad_to=chunk)
+    packed = pad_packed_lanes(packed, lane_bucket(packed.n_lanes))
+    dev = eng.device
+    staged = [packed_tensors(packed, dev, lo, lo + chunk) for lo in range(0, packed.n_steps, chunk)]
+    rw = torch.from_numpy(packed.retire_width).to(dev)
+    lc = torch.from_numpy(packed.lane_ctx).to(dev)
+
+    def one_pass():
+        t0 = time.perf_counter()
+        state = init_state(packed.n_lanes, eng.sim_cfg, dev)
+        for xs in staged:
+            state = eng._run_chunk(state, xs, rw, lc)
+        _, cycles, overflow = workload_totals(state, packed)
+        cycles, overflow = cycles.cpu(), overflow.cpu()
+        return time.perf_counter() - t0, cycles, overflow
+
+    one_pass()
+    first = time.perf_counter() - t_start
+    dt, cycles, overflow = one_pass()
+    return dict(throughput_ips=int(packed.n_instructions.sum()) / dt, seconds=dt,
+                first_call_seconds=first, workload_cycles=cycles.numpy().astype(np.float64),
+                workload_overflow=overflow.numpy())
+
+
+def graph_nodes(prog):
+    """Node count of a program's CUDA graph (`cuGraphGetNodes` of libcuda)."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    err = lib.cuGraphGetNodes(prog.graph.graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUDA error {err}")
+    return n.value
+
+
+def build_log(prog):
+    g = prog.graph
+    return (f"capture {g.capture_seconds:.3f} s, instantiate {g.instantiate_seconds:.3f} s, "
+            f"{graph_nodes(prog)} graph nodes, launches a replay {g.launches}")
+
+
+def program_phase(torch, dev, routes, arrays, pcfg):
+    """The resident programs: each route's graph totals against an eager
+    `_run_chunk` pass bit for bit, graph and eager speed side by side, the
+    build at chunk 256 and at chunk 1024, the weight-slot binding of two
+    engines of one kind, and the cache's per-key counters."""
+    import numpy as np
+
+    from repro_torch.core.predictor import init_predictor
+    from repro_torch.serving.compile_cache import global_cache
+    from repro_torch.serving.simnet_engine import SimNetEngine
+
+    log("[5c] resident programs: graph vs eager, builds, weight slots, cache")
+    eager = {}
+    for name, (eng, first) in routes.items():
+        g = eng.simulate_many(arrays, n_lanes=PRED_LANES, chunk=PRED_STEPS, timeit=True)
+        e = eager[name] = eager_pass(torch, eng, arrays, PRED_LANES, PRED_STEPS)
+        check(all(np.array_equal(r["workload_cycles"], e["workload_cycles"])
+                  and np.array_equal(r["workload_overflow"], e["workload_overflow"]) for r in (first, g)),
+              f"{name}: graph totals equal the eager _run_chunk pass bit for bit")
+        prog = eng.executable(first["n_lanes"], PRED_STEPS)
+        log(f"  {name}: throughput_ips graph {g['throughput_ips']:.1f} vs eager "
+            f"{e['throughput_ips']:.1f} ({g['throughput_ips'] / e['throughput_ips']:.2f}x); "
+            f"seconds {g['seconds']:.4f} vs {e['seconds']:.4f} ({1e3 * g['seconds'] / first['n_steps']:.4f} "
+            f"vs {1e3 * e['seconds'] / first['n_steps']:.4f} ms a step); first_call_seconds graph "
+            f"{first['first_call_seconds']:.3f} cold, {g['first_call_seconds']:.3f} warm, eager "
+            f"{e['first_call_seconds']:.3f}; build at chunk {PRED_STEPS}: {build_log(prog)}")
+
+    # chunk 1024 on a smaller lane count: 16 lanes a workload, 2048 steps
+    lanes, chunk = 16, 1024
+    ring = routes["ring+fused_step"][0]
+    eng = SimNetEngine(ring.params, pcfg, ring.sim_cfg, use_kernel=True, device=dev)
+    g = eng.simulate_many(arrays, n_lanes=lanes, chunk=chunk, timeit=True)
+    e = eager_pass(torch, eng, arrays, lanes, chunk)
+    check(np.array_equal(g["workload_cycles"], e["workload_cycles"]),
+          f"ring+fused_step at {g['n_lanes']} lanes, chunk {chunk}: graph equals eager bit for bit")
+    log(f"  ring+fused_step at {g['n_lanes']} lanes x {g['n_steps']} steps, chunk {chunk}: "
+        f"throughput_ips graph {g['throughput_ips']:.1f} vs eager {e['throughput_ips']:.1f}; "
+        f"first_call_seconds graph {g['first_call_seconds']:.3f} (cache {g['cache']}), eager "
+        f"{e['first_call_seconds']:.3f}; build: {build_log(eng.executable(g['n_lanes'], chunk))}")
+
+    # two engines of one kind, other weights, one cache: the weight slots
+    other = init_predictor(torch.Generator().manual_seed(SEED + 1), pcfg, dev)
+    b = SimNetEngine(other, pcfg, ring.sim_cfg, use_kernel=True, device=dev)
+    rb = b.simulate_many(arrays, n_lanes=PRED_LANES, chunk=PRED_STEPS)
+    ra = ring.simulate_many(arrays, n_lanes=PRED_LANES, chunk=PRED_STEPS)
+    eb = eager_pass(torch, b, arrays, PRED_LANES, PRED_STEPS)
+    check(rb["cache"]["hits"] == 1 and rb["cache"]["misses"] == 0,
+          f"a second engine of the kind hits the first one's graph ({rb['cache']})")
+    check(np.array_equal(rb["workload_cycles"], eb["workload_cycles"])
+          and np.array_equal(ra["workload_cycles"], eager["ring+fused_step"]["workload_cycles"])
+          and not np.array_equal(ra["workload_cycles"], rb["workload_cycles"]),
+          "two engines with different weights through one graph: each equals its own eager totals")
+
+    stats = global_cache(dev).stats()
+    log(f"  program cache of {dev}: hits {stats['hits']}, misses {stats['misses']}, "
+        f"build seconds {stats['compile_seconds']:.3f}, {stats['n_executables']} programs")
+    for key, st in stats["executables"].items():
+        log(f"    {key}: 1 miss, {st['hits']} hits, build {st['compile_seconds']:.3f} s")
+    return eager
 
 
 def conv2s_path_phase(torch, params, x):
@@ -489,33 +619,73 @@ def device_rows(prof):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def profile_phase(torch, dev, pcfg, params, arrays, steps=32):
-    """Where the main path's time goes, over a short profiled window."""
+def profiled(torch, fn, steps):
+    """Profile one call of ``fn`` (which runs ``steps`` steps on the card):
+    wall, device busy time, device operations and the span between CUDA
+    events around the call, whose part not busy is the gaps between device
+    operations. None if the profiler reports no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.simulator import SimConfig
-    from repro_torch.serving.simnet_engine import SimNetEngine
-
-    eng = SimNetEngine(params, pcfg, SimConfig(), use_kernel=True, device=dev)
-    small = [{k: v[: PRED_LANES * steps] for k, v in a.items()} for a in arrays]
-    eng.simulate_many(small, n_lanes=PRED_LANES, chunk=steps)  # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.simulate_many(small, n_lanes=PRED_LANES, chunk=steps)
+        start.record()
+        fn()
+        end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof)
     if not rows:
-        log("[6] profile: the profiler reported no device time (not measured)")
+        return None
+    busy = sum(r[0] for r in rows)  # one stream: device events do not overlap
+    span = start.elapsed_time(end)
+    return dict(rows=rows, wall=wall_ms, busy=busy, span=span, steps=steps,
+                ops=sum(r[1] for r in rows) / steps)
+
+
+def log_profile(what, p, top=6):
+    if p is None:
+        log(f"  {what}: the profiler reported no device time (not measured)")
         return
-    dev_ms = sum(r[0] for r in rows)  # one stream: device events do not overlap
-    log(f"[6] profile of {steps} predicted steps x {len(arrays) * PRED_LANES} lanes "
-        f"(profiler on): wall {wall_ms:.2f} ms ({wall_ms / steps:.3f} ms/step), device busy "
-        f"{dev_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}% of wall), "
-        f"{sum(r[1] for r in rows) / steps:.1f} device operations per step")
-    for t, count, key in sorted(rows, reverse=True)[:6]:
-        log(f"  {key[:100]}: {t:.3f} ms in {count} calls ({100 * t / dev_ms:.1f}% of device time)")
+    n = p["steps"]
+    log(f"  {what} (profiler on): wall {p['wall']:.2f} ms ({p['wall'] / n:.4f} ms/step), device busy "
+        f"{p['busy']:.2f} ms ({p['busy'] / n:.4f} ms/step, {100 * p['busy'] / p['wall']:.1f}% of wall), "
+        f"{p['ops']:.1f} device operations per step; event span {p['span']:.2f} ms, gaps "
+        f"{(p['span'] - p['busy']) / n * 1e3:.1f} us/step ({1e3 * (p['span'] - p['busy']) / (p['ops'] * n):.2f} "
+        f"us an operation)")
+    for t, count, key in sorted(p["rows"], reverse=True)[:top]:
+        log(f"    {key[:100]}: {t:.3f} ms in {count} calls ({100 * t / p['busy']:.1f}% of device time)")
+
+
+def profile_phase(torch, dev, eng, arrays, steps=32, replays=4):
+    """Where the main path's time goes: a profiled window of eager steps
+    (`_run_chunk`) beside one of graph replays of the same chunk."""
+    from repro_torch.core.simulator import init_state, pack_workloads, packed_tensors, pad_packed_lanes
+    from repro_torch.serving.compile_cache import lane_bucket
+
+    small = [{k: v[: PRED_LANES * steps] for k, v in a.items()} for a in arrays]
+    packed = pack_workloads(small, PRED_LANES, eng.sim_cfg, pad_to=steps)
+    packed = pad_packed_lanes(packed, lane_bucket(packed.n_lanes))
+    xs = packed_tensors(packed, dev, 0, steps)
+    rw = torch.from_numpy(packed.retire_width).to(dev)
+    lc = torch.from_numpy(packed.lane_ctx).to(dev)
+    log(f"[6] profile of ring+fused_step, {packed.n_lanes} lanes: {steps} eager steps, then "
+        f"{replays} replays of a {steps}-step chunk graph")
+
+    def eager():
+        eng._run_chunk(init_state(packed.n_lanes, eng.sim_cfg, dev), xs, rw, lc)
+
+    eager()  # warm
+    log_profile("eager steps", profiled(torch, eager, steps))
+    prog = eng.executable(packed.n_lanes, steps)
+
+    def graph():
+        prog.run(eng.params, eng._weights_tag(), [xs] * replays, rw, lc, lambda state: None)
+
+    graph()  # warm
+    log_profile("graph replays", profiled(torch, graph, steps * replays))
 
 
 def tensors(tree):
@@ -533,7 +703,6 @@ def lm_phase(torch, dev):
     decoding through DecodeEngine with the flash-decode kernel in every
     layer; then a profiled window of decode steps."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
@@ -585,51 +754,59 @@ def lm_phase(torch, dev):
           and bool(((stream >= 0) & (stream < cfg.vocab)).all()), "generated tokens in the vocabulary")
     check(int(final["pos"]) == LM_PROMPT + LM_STEPS, f"final position {int(final['pos'])}")
     del final
-    log(f"  decode {LM_STEPS} steps x {LM_BATCH} requests (timed pass of generate): "
+    graph = engine.step_graph(full, first)
+    log(f"  decode {LM_STEPS} steps x {LM_BATCH} requests (timed pass of generate, graph replays): "
         f"{tps:.1f} tokens/s, {1e3 * LM_BATCH / tps:.3f} ms per decode step, peak memory "
-        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; step graph: {build_log(graph)}")
     log(f"  first request's tokens: {stream[:16, 0].tolist()} ...")
 
-    st, tok = copy_state(full), first
+    def eager_steps(n, st):
+        return eager_stream(torch, model, params, st, first, n, use_kernel=True)[0]
+
+    eager_steps(2, copy_state(full))  # warm
+    st = copy_state(full)  # copied outside the timed pass, as generate's
     torch.cuda.synchronize()
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(LM_PROFILE_STEPS):
-            lg, st = model.decode_step(params, st, tok, use_kernel=True)
-            tok = torch.argmax(lg, dim=-1).to(torch.int32)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    eager_toks = eager_steps(LM_STEPS, st)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
     del st
-    rows = device_rows(prof)
-    if not rows:
-        log("[7] profile: the profiler reported no device time (not measured)")
-    else:
-        dev_ms = sum(r[0] for r in rows)
-        k4_ms = sum(r[0] for r in rows if "decode_split_kernel" in r[2] or "decode_combine_kernel" in r[2])
-        log(f"  profile of {LM_PROFILE_STEPS} decode steps (profiler on): wall {wall_ms:.2f} ms "
-            f"({wall_ms / LM_PROFILE_STEPS:.3f} ms/step), device busy {dev_ms:.2f} ms "
-            f"({100 * dev_ms / wall_ms:.1f}% of wall), {sum(r[1] for r in rows) / LM_PROFILE_STEPS:.1f} "
-            f"device operations per step; decode_attn (split + combine) {k4_ms:.3f} ms "
-            f"({100 * k4_ms / dev_ms:.1f}% of device time)")
-        for t, count, key in sorted(rows, reverse=True)[:8]:
-            log(f"  {key[:100]}: {t:.3f} ms in {count} calls ({100 * t / dev_ms:.1f}% of device time)")
+    agree = float((eager_toks == stream).float().mean())
+    log(f"  eager decode, same {LM_STEPS} steps: {LM_STEPS * LM_BATCH / eager_s:.1f} tokens/s, "
+        f"{1e3 * eager_s / LM_STEPS:.3f} ms per decode step; graph "
+        f"{eager_s * tps / (LM_STEPS * LM_BATCH):.2f}x faster; greedy tokens equal to the graph's: "
+        f"{100 * agree:.2f}%")
+
+    def k4_share(p):
+        if p is not None:
+            k4 = sum(r[0] for r in p["rows"] if "decode_split_kernel" in r[2] or "decode_combine_kernel" in r[2])
+            log(f"    decode_attn (split + combine) {k4:.3f} ms ({100 * k4 / p['busy']:.1f}% of device time)")
+
+    st = copy_state(full)
+    p = profiled(torch, lambda: eager_steps(LM_PROFILE_STEPS, st), LM_PROFILE_STEPS)
+    del st
+    log_profile(f"profile of {LM_PROFILE_STEPS} eager decode steps", p, top=8)
+    k4_share(p)
+    with graph.lock:
+        graph.load(full, first)
+        p = profiled(torch, lambda: graph.decode(LM_PROFILE_STEPS), LM_PROFILE_STEPS)
+    log_profile(f"profile of {LM_PROFILE_STEPS} decode-step graph replays", p, top=8)
+    k4_share(p)
     return dict(model=model, params=params, full=full, first=first, stream=stream,
                 launches=counts["decode_attn"])
 
 
-def logging_decoder(model, use_kernel, logits):
-    """``lm_decoder(model, use_kernel=...)`` that also appends each step's
-    logits to ``logits``."""
-    from repro_torch.serving.engine import StatefulDecoder, lm_decoder
-
-    inner = lm_decoder(model, use_kernel=use_kernel)
-
-    def step(params, state, token):
-        lg, state = inner.step(params, state, token)
-        logits.append(lg)
-        return lg, state
-
-    return StatefulDecoder(inner.init_state, step, inner.name)
+def eager_stream(torch, model, params, state, first, n_steps, use_kernel):
+    """Greedy decoding step by step, without a graph, from ``state`` (its
+    caches are written in place): (tokens (n, B), logits (n, B, V))."""
+    tok, toks, lgs = first, [], []
+    with torch.no_grad():
+        for _ in range(n_steps):
+            lg, state = model.decode_step(params, state, tok, use_kernel=use_kernel)
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            toks.append(tok)
+            lgs.append(lg)
+    return torch.stack(toks), torch.stack(lgs)
 
 
 def decode_exactness_phase(torch, dev, lm):
@@ -642,7 +819,7 @@ def decode_exactness_phase(torch, dev, lm):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.lm import rehome_state
     from repro_torch.models.registry import build_model
-    from repro_torch.serving.engine import DecodeEngine, copy_state
+    from repro_torch.serving.engine import DecodeEngine, copy_state, lm_decoder
 
     cfg = reduced(get_config(LM_ARCH), n_layers=EXACT_LAYERS, dtype="float32")
     windows = [cfg.layer_window(i) for i in range(cfg.n_layers)]
@@ -660,13 +837,14 @@ def decode_exactness_phase(torch, dev, lm):
                 logits, st = model.prefill(params, {"tokens": tokens})
                 full = rehome_state(cfg, st, EXACT_PROMPT + EXACT_STEPS)
                 first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-                lgs = []
-                toks, _, _ = DecodeEngine(logging_decoder(model, use_kernel, lgs), params).generate(
+                toks, lgs = eager_stream(torch, model, params, copy_state(full), first, EXACT_STEPS,
+                                         use_kernel)
+                gen, _, _ = DecodeEngine(lm_decoder(model, use_kernel=use_kernel), params).generate(
                     full, first, EXACT_STEPS)
-                # generate decodes twice (warm-up, then timed): keep the timed pass's logits
-                check(len(lgs) == 2 * EXACT_STEPS, f"{where} use_kernel={use_kernel}: "
-                      f"{len(lgs)} decode steps in generate's two passes")
-                runs[(where, use_kernel)] = (toks.cpu(), torch.stack(lgs[EXACT_STEPS:]).cpu())
+                check(torch.equal(gen, toks), f"{where} use_kernel={use_kernel}: DecodeEngine's greedy "
+                      f"stream ({'graph replays' if where == 'card' else 'eager'}) equals the eager "
+                      "steps' token for token")
+                runs[(where, use_kernel)] = (toks.cpu(), lgs.cpu())
     (tk, lk), (tp, lp) = runs[("card", True)], runs[("card", False)]
     check(torch.equal(tk, tp), f"CUDA: greedy tokens of the kernel path equal the plain path's "
           f"(max |logit diff| {float((lk - lp).abs().max()):.3e})")
@@ -777,10 +955,11 @@ def main():
     pcfg, params, rows, x = kernel_phase(torch, dev)
     rows += conv_decode_kernel_phase(torch, dev, params, x)
     teacher_forced_phase(torch, dev)
-    ring, launches, arrays = predicted_phase(torch, dev, pcfg, params)
+    routes, launches, arrays = predicted_phase(torch, dev, pcfg, params)
+    program_phase(torch, dev, routes, arrays, pcfg)
     launches["conv2s"] = conv2s_path_phase(torch, params, x)
-    profile_phase(torch, dev, pcfg, params, arrays)
-    del x, arrays
+    profile_phase(torch, dev, routes["ring+fused_step"][0], arrays)
+    del x, arrays, routes
     lm = lm_phase(torch, dev)
     launches["decode_attn"] = lm["launches"]
     decode_exactness_phase(torch, dev, lm)

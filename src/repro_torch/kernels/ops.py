@@ -10,6 +10,9 @@ allocated here with ``torch.empty``; the kernels allocate nothing.
 only where a kernel is launched), so a run can show that its main path
 went through the kernels. A wrapper call counts once, even where it
 launches two kernels (``decode_attn``: the split pass and its combine).
+A CUDA graph's replay runs no Python, so each graph adds the counts its
+capture recorded at every replay (`serving.graphs.CapturedGraph`): the
+counts keep meaning the launches the card ran.
 """
 from __future__ import annotations
 

@@ -2,18 +2,26 @@
 batched LM decoding after a prefill.
 
 A StatefulDecoder is (init_state, step). The reference jits a
-``lax.scan`` over the steps; the port runs the steps eagerly in a Python
-loop on the state's device. Nothing is read back to the host between
-steps (the next token is the device-side argmax), so the host only
-enqueues work.
+``lax.scan`` over the steps and keeps one compiled program per engine and
+shape. The port keeps, per engine, one CUDA graph of ONE decode step for
+each (state shapes and dtypes, token shape) it meets (`StepGraph`): the
+decoder's step keywords are fixed per engine, so they are part of every
+key. Static buffers hold the token, the KV caches and ``pos``; the argmax
+runs inside the graph, which writes the next token back into the token
+buffer and advances ``pos`` in place, so a pass is ``n_steps`` replays with
+one copy of each step's token into the output. On the CPU the steps run
+eagerly in a Python loop.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, Callable
 
 import torch
+
+from repro_torch.serving.graphs import CapturedGraph
 
 
 @dataclasses.dataclass
@@ -50,6 +58,51 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class StepGraph:
+    """One CUDA graph of one greedy decode step over static buffers: the
+    state (KV caches written in place, ``pos`` advanced in place) and the
+    token, which the step reads and overwrites with its argmax.
+
+    Not reentrant: hold ``lock`` from `load` to the last read of the
+    static buffers.
+    """
+
+    def __init__(self, decoder: StatefulDecoder, params, state, token: torch.Tensor):
+        self.lock = threading.Lock()
+        self.state = copy_state(state)
+        self.token = token.clone()
+
+        def body():
+            logits, new = decoder.step(params, self.state, self.token)
+            for name, buf in self.state.items():
+                if new[name] is not buf:  # pos + 1 is a new tensor
+                    buf.copy_(new[name])
+            # ties go to the first maximum, as jnp.argmax
+            self.token.copy_(torch.argmax(logits, dim=-1).to(self.token.dtype))
+
+        self.graph = CapturedGraph(body, token.device)
+
+    def load(self, state, token: torch.Tensor) -> None:
+        """Copy a decode state and the current token into the buffers."""
+        for name, buf in self.state.items():
+            buf.copy_(state[name])
+        self.token.copy_(token)
+
+    def decode(self, n_steps: int) -> torch.Tensor:
+        """``n_steps`` replays from the loaded state: (n_steps, B) tokens."""
+        tokens = torch.empty((n_steps,) + tuple(self.token.shape), dtype=self.token.dtype,
+                             device=self.token.device)
+        for i in range(n_steps):
+            self.graph.replay()
+            tokens[i].copy_(self.token)
+        return tokens
+
+
+def _program_key(state, token):
+    return (tuple((name, tuple(v.shape), v.dtype) for name, v in sorted(state.items())),
+            tuple(token.shape), token.dtype, token.device)
+
+
 class DecodeEngine:
     """Greedy batched decoding."""
 
@@ -57,12 +110,25 @@ class DecodeEngine:
         # ``mesh`` and ``donate`` are accepted for the reference's signature
         # and ignored: the port runs on one device (the mesh slice is
         # ROADMAP.md Queue 1 item 12), and it never consumes the caller's
-        # state, since every pass decodes from a copy (`copy_state`)
+        # state, since every pass decodes from a copy
         self.decoder = decoder
         self.params = params
         self.mesh = mesh
+        self._lock = threading.Lock()
+        self._graphs = {}  # guarded-by: _lock
+
+    def step_graph(self, state, token: torch.Tensor) -> StepGraph:
+        """This engine's decode-step graph for ``state``'s and ``token``'s
+        shapes and dtypes (captured at the first request)."""
+        key = _program_key(state, token)
+        with self._lock:
+            graph = self._graphs.get(key)
+            if graph is None:
+                graph = self._graphs[key] = StepGraph(self.decoder, self.params, state, token)
+            return graph
 
     def _multi_step(self, state, token, n_steps: int):
+        """Eager decoding (the CPU path): ``state`` is decoded in place."""
         tokens = []
         for _ in range(n_steps):
             logits, state = self.decoder.step(self.params, state, token)
@@ -74,14 +140,27 @@ class DecodeEngine:
     @torch.no_grad()
     def generate(self, state, first_token, n_steps: int):
         """Returns (tokens (n_steps, B) int32, final state, tokens/sec):
-        a warm-up pass, then a timed pass from the same initial state."""
+        a warm-up pass, then a timed pass from the same initial state. On
+        the card the warm-up pass captures the step (at the first call for
+        these shapes) and replays it; the timed pass only replays."""
         device = first_token.device
-        self._multi_step(copy_state(state), first_token, n_steps)  # warm-up
-        start = copy_state(state)  # copied outside the timed pass
-        _sync(device)
-        t0 = time.perf_counter()
-        tokens, state = self._multi_step(start, first_token, n_steps)
-        _sync(device)
-        dt = time.perf_counter() - t0
         B = first_token.shape[0]
-        return tokens, state, (n_steps * B) / dt
+        if device.type != "cuda":
+            self._multi_step(copy_state(state), first_token, n_steps)  # warm-up
+            start = copy_state(state)  # copied outside the timed pass
+            t0 = time.perf_counter()
+            tokens, state = self._multi_step(start, first_token, n_steps)
+            dt = time.perf_counter() - t0
+            return tokens, state, (n_steps * B) / dt
+        graph = self.step_graph(state, first_token)
+        with graph.lock:
+            graph.load(state, first_token)
+            graph.decode(n_steps)  # warm-up
+            graph.load(state, first_token)  # copied outside the timed pass
+            _sync(device)
+            t0 = time.perf_counter()
+            tokens = graph.decode(n_steps)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            final = copy_state(graph.state)
+        return tokens, final, (n_steps * B) / dt

@@ -18,7 +18,15 @@ from repro.serving.compile_cache import CompileCache  # noqa: E402
 from repro.serving.simnet_engine import SimNetEngine as RefEngine  # noqa: E402
 from repro_torch.core.predictor import PredictorConfig, params_from_numpy  # noqa: E402
 from repro_torch.core.simulator import SimConfig  # noqa: E402
-from repro_torch.serving.simnet_engine import NumericError, SimNetEngine  # noqa: E402
+from repro_torch.serving import faults  # noqa: E402
+from repro_torch.serving.compile_cache import CompileCache as PortCache  # noqa: E402
+from repro_torch.serving.compile_cache import global_cache  # noqa: E402
+from repro_torch.serving.faults import FaultPlan, FaultSpec  # noqa: E402
+from repro_torch.serving.simnet_engine import (  # noqa: E402
+    ChunkProgram,
+    NumericError,
+    SimNetEngine,
+)
 
 CTX = 16
 BENCHES = [("mlb_stream", 1300), ("sim_loop", 900)]
@@ -125,3 +133,68 @@ def test_nan_params_raise_numeric_error(arrs, weights):
     with pytest.raises(NumericError) as e:
         eng.simulate_many(arrs, n_lanes=2, chunk=64)
     assert e.value.bad_workloads == [0, 1]
+
+
+# ------------------------------------------------------- the program cache
+
+
+def test_same_kind_engines_share_one_program(arrs, weights):
+    """Weights are not part of the key: a second engine of the same kind,
+    with other weights, hits the first one's entry, and each reports its
+    own cache delta; totals stay each engine's own."""
+    _, _, tree = weights
+    pcfg = PredictorConfig(kind="c3", ctx_len=CTX)
+    cache = PortCache()
+    a = SimNetEngine(params_from_numpy(tree, pcfg, "cpu"), pcfg, use_kernel=True,
+                     device="cpu", cache=cache)
+    other = params_from_numpy(tree, pcfg, "cpu")
+    other["fc1"]["b"] += 0.5  # shifts the decoded latencies
+    b = SimNetEngine(other, pcfg, use_kernel=True, device="cpu", cache=cache)
+    assert a.executable_key(8, 64) == b.executable_key(8, 64)
+    ra = a.simulate_many(arrs, n_lanes=4, chunk=64)
+    rb = b.simulate_many(arrs, n_lanes=4, chunk=64)
+    assert (ra["cache"]["misses"], ra["cache"]["hits"]) == (1, 0)
+    assert (rb["cache"]["misses"], rb["cache"]["hits"]) == (0, 1)
+    assert ra["cache"]["compile_seconds"] >= 0.0 and rb["cache"]["compile_seconds"] == 0.0
+    st = cache.stats()
+    assert (st["misses"], st["hits"], st["n_executables"]) == (1, 1, 1)
+    assert list(st["executables"]) == ["c3/ctx16/ring/L8/T64/kernel"]
+    assert not np.array_equal(ra["workload_cycles"], rb["workload_cycles"])
+    fresh = SimNetEngine(other, pcfg, use_kernel=True, device="cpu", cache=PortCache())
+    np.testing.assert_array_equal(rb["workload_cycles"],
+                                  fresh.simulate_many(arrs, n_lanes=4, chunk=64)["workload_cycles"])
+
+
+def test_engine_programs_and_keys(weights):
+    _, _, tree = weights
+    pcfg = PredictorConfig(kind="c3", ctx_len=CTX)
+    cache = PortCache()
+    eng = SimNetEngine(params_from_numpy(tree, pcfg, "cpu"), pcfg, SimConfig(ctx_len=CTX),
+                       use_kernel=True, device="cpu", cache=cache)
+    key = eng.executable_key(16, 128)
+    assert (key.predictor, key.sim_cfg, key.n_lanes, key.chunk, key.mesh, key.use_kernel) == (
+        pcfg, SimConfig(ctx_len=CTX), 16, 128, None, True)
+    prog = eng.executable(16, 128)
+    assert isinstance(prog, ChunkProgram) and prog.key == key and eng.executable(16, 128) is prog
+    tf = SimNetEngine(sim_cfg=SimConfig(ctx_len=CTX), device="cpu", cache=cache)
+    assert tf.executable_key(16, 128).predictor is None
+    assert tf.executable(16, 128) is not prog
+    assert SimNetEngine(device="cpu").cache is global_cache("cpu")
+
+
+def test_batch_numeric_fault_raises_numeric_error(arrs):
+    """The port's own `faults`: the "batch.numeric" corrupt trigger poisons
+    the totals before the numeric guard, which raises; the next arrival is
+    clean."""
+    eng = SimNetEngine(sim_cfg=SimConfig(ctx_len=CTX), device="cpu", cache=PortCache())
+    plan = FaultPlan(2, {"batch.numeric": FaultSpec(corrupt=1)})
+    faults.install(plan)
+    try:
+        with pytest.raises(NumericError) as e:
+            eng.simulate_many(arrs, n_lanes=2, chunk=64)
+        assert len(e.value.bad_workloads) == 1
+        ok = eng.simulate_many(arrs, n_lanes=2, chunk=64)
+    finally:
+        faults.clear()
+    assert np.isfinite(ok["workload_cycles"]).all()
+    assert plan.snapshot()["sites"]["batch.numeric"]["corruptions"] == 1

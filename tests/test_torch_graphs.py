@@ -1,0 +1,212 @@
+"""The resident programs of the port — CUDA graphs of a SimNet chunk and
+of a decode step — against the eager functions they capture.
+
+On the card (``cuda`` tests) a graph's totals, tokens and final state must
+equal the eager pass's bit for bit: a replay runs the same kernels in the
+same order on the same inputs. On the CPU a program is the eager chunk
+function, so the CPU cases hold the program path to a pass written out by
+hand. This file imports neither JAX nor the reference package, so the
+``cuda`` tests run on a machine that has no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_graphs.py
+"""
+import sys
+import threading
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import reduced  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.core.features import trace_arrays  # noqa: E402
+from repro_torch.core.predictor import PredictorConfig, init_predictor  # noqa: E402
+from repro_torch.core.simulator import (  # noqa: E402
+    SimConfig,
+    init_state,
+    pack_workloads,
+    packed_tensors,
+    pad_packed_lanes,
+    workload_totals,
+)
+from repro_torch.des.o3 import O3Config, O3Simulator  # noqa: E402
+from repro_torch.des.workloads import get_benchmark  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models.lm import rehome_state  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.serving.compile_cache import CompileCache, lane_bucket  # noqa: E402
+from repro_torch.serving.engine import DecodeEngine, lm_decoder  # noqa: E402
+from repro_torch.serving.simnet_engine import ChunkGraph, SimNetEngine  # noqa: E402
+
+CTX = 16
+BENCHES = [("mlb_stream", 1300), ("sim_loop", 900)]
+LANES, CHUNK = 4, 64  # 8 lanes in all; ~325 steps a lane, so six chunks chain
+ROUTES = ["ring+fused_step", "roll+cnn_trunk", "plain", "teacher-forced"]
+KERNEL = {"ring+fused_step": "fused_step", "roll+cnn_trunk": "cnn_trunk"}
+B, PROMPT, STEPS = 2, 40, 8
+
+
+@pytest.fixture(scope="module")
+def arrs():
+    sim = O3Simulator(O3Config())
+    return [trace_arrays(sim.run(get_benchmark(n, s))) for n, s in BENCHES]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc: the graphs and kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _params(seed, device):
+    pcfg = PredictorConfig(kind="c3", ctx_len=CTX)
+    return init_predictor(torch.Generator().manual_seed(seed), pcfg, device), pcfg
+
+
+def _engine(route, device, cache, seed=0):
+    if route == "teacher-forced":
+        return SimNetEngine(sim_cfg=SimConfig(ctx_len=CTX), device=device, cache=cache)
+    params, pcfg = _params(seed, device)
+    layout = "roll" if route.startswith("roll") else "ring"
+    return SimNetEngine(params, pcfg, SimConfig(ctx_len=CTX, layout=layout),
+                        use_kernel=route != "plain", device=device, cache=cache)
+
+
+def _eager_totals(eng, arrs):
+    """The engine's pass without its program: `_run_chunk` eagerly over
+    the same pack, on the engine's device."""
+    packed = pack_workloads(arrs, LANES, eng.sim_cfg, pad_to=CHUNK)
+    packed = pad_packed_lanes(packed, lane_bucket(packed.n_lanes))
+    dev = eng.device
+    rw = torch.from_numpy(packed.retire_width).to(dev)
+    lc = torch.from_numpy(packed.lane_ctx).to(dev)
+    state = init_state(packed.n_lanes, eng.sim_cfg, dev)
+    for lo in range(0, packed.n_steps, CHUNK):
+        state = eng._run_chunk(state, packed_tensors(packed, dev, lo, lo + CHUNK), rw, lc)
+    _, cycles, overflow = workload_totals(state, packed)
+    return cycles.cpu().numpy().astype(np.float64), overflow.cpu().numpy()
+
+
+def _check_route(route, device, arrs):
+    eng = _engine(route, device, CompileCache())
+    ops.reset_launches()
+    got = eng.simulate_many(arrs, n_lanes=LANES, chunk=CHUNK, timeit=True)
+    counts = dict(ops.launches)
+    assert got["n_steps"] > 2 * CHUNK and got["cache"]["misses"] == 1
+    want_cycles, want_overflow = _eager_totals(eng, arrs)
+    np.testing.assert_array_equal(got["workload_cycles"], want_cycles)
+    np.testing.assert_array_equal(got["workload_overflow"], want_overflow)
+    return eng, got, counts
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_cpu_program_equals_the_eager_pass(arrs, route):
+    eng, _, counts = _check_route(route, "cpu", arrs)
+    assert sum(counts.values()) == 0  # CPU tensors take the plain versions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ROUTES)
+def test_graph_equals_eager_bit_for_bit(cuda, arrs, route):
+    """Totals of the chunk graph (six chained chunks, two passes) equal
+    the eager pass; a replay counts the route's kernel once a step."""
+    eng, got, counts = _check_route(route, cuda, arrs)
+    assert isinstance(eng.executable(2 * LANES, CHUNK), ChunkGraph)
+    want = {k: 0 for k in counts}
+    if route in KERNEL:
+        want[KERNEL[route]] = 2 * got["n_steps"]  # timeit: two passes
+    assert counts == want
+
+
+@pytest.mark.cuda
+def test_graph_binds_each_engines_weights(cuda, arrs):
+    """Two engines of the same kind with different weights through one
+    cache: one graph, and each engine's totals equal its own eager ones."""
+    cache = CompileCache()
+    a, b = (_engine("ring+fused_step", cuda, cache, seed) for seed in (0, 1))
+    results = [e.simulate_many(arrs, n_lanes=LANES, chunk=CHUNK)["workload_cycles"]
+               for e in (a, b, a)]
+    assert (cache.stats()["misses"], cache.stats()["hits"]) == (1, 2)
+    for eng, cycles in zip((a, b, a), results):
+        np.testing.assert_array_equal(cycles, _eager_totals(eng, arrs)[0])
+    assert not np.array_equal(results[0], results[1])
+    with torch.no_grad():
+        a.params["fc1"]["b"] += 0.5  # an in-place update is seen at the next pass
+    np.testing.assert_array_equal(a.simulate_many(arrs, n_lanes=LANES, chunk=CHUNK)["workload_cycles"],
+                                  _eager_totals(a, arrs)[0])
+
+
+@pytest.mark.cuda
+def test_graph_passes_from_many_threads_take_turns(cuda, arrs):
+    """A graph entry is not reentrant: eight threads run passes of two
+    engines (other weights) through one cold cache at once; the graph is
+    built once and every pass equals its engine's eager totals."""
+    cache = CompileCache()
+    engines = [_engine("ring+fused_step", cuda, cache, seed) for seed in (0, 1)]
+    want = [_eager_totals(e, arrs)[0] for e in engines]
+    results, errors = [], []
+
+    def work(i):
+        try:
+            for _ in range(3):
+                cycles = engines[i % 2].simulate_many(arrs, n_lanes=LANES, chunk=CHUNK)["workload_cycles"]
+                results.append((i % 2, cycles))
+        except BaseException as e:  # recorded and asserted below
+            errors.append(e)
+            raise
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert len(results) == 24 and cache.stats()["misses"] == 1
+    for i, cycles in results:
+        np.testing.assert_array_equal(cycles, want[i])
+
+
+def _decode_inputs(device):
+    cfg = reduced(get_config("gemma3-4b"), n_layers=6, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(3), device=device)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab, (B, PROMPT)).astype(np.int32)
+    with torch.no_grad():
+        logits, state = model.prefill(params, {"tokens": torch.from_numpy(prompts).to(device)})
+    full = rehome_state(cfg, state, PROMPT + STEPS)
+    return model, params, full, torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_graph_decode_equals_eager(cuda, use_kernel):
+    """The decode-step graph's greedy stream and final state equal the
+    eager steps' bit for bit; the caller's state is untouched; K4 counts
+    once a layer and replay (warm-up and timed pass)."""
+    model, params, full, first = _decode_inputs(cuda)
+    before = {k: v.clone() for k, v in full.items()}
+    st, tok, eager = {k: v.clone() for k, v in full.items()}, first, []
+    with torch.no_grad():
+        for _ in range(STEPS):
+            lg, st = model.decode_step(params, st, tok, use_kernel=use_kernel)
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            eager.append(tok)
+    engine = DecodeEngine(lm_decoder(model, use_kernel=use_kernel), params)
+    ops.reset_launches()
+    got, final, tps = engine.generate(full, first, STEPS)
+    assert ops.launches["decode_attn"] == (model.cfg.n_layers * STEPS * 2 if use_kernel else 0)
+    assert torch.equal(got, torch.stack(eager)) and tps > 0
+    for k in full:
+        assert torch.equal(final[k], st[k]), k
+        assert torch.equal(full[k], before[k]), k
+    again, _, _ = engine.generate(full, first, STEPS)  # the same graph, replayed
+    assert torch.equal(again, got) and len(engine._graphs) == 1

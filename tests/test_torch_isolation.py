@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no JAX, nothing of the reference package,
-its own copy of the DES giving the reference's traces, and no silent CPU
-fallback when CUDA is asked for."""
+its own copies of the DES and of the fault injector giving the reference's
+traces and fault schedules, and no silent CPU fallback when CUDA is asked
+for."""
 import ast
 import dataclasses
 import os
@@ -17,9 +18,11 @@ from repro.core import features as ref_features  # noqa: E402
 from repro.des.o3 import O3Config as RefO3Config  # noqa: E402
 from repro.des.o3 import O3Simulator as RefO3Simulator  # noqa: E402
 from repro.des.workloads import get_benchmark as ref_get_benchmark  # noqa: E402
+from repro.serving import faults as ref_faults  # noqa: E402
 from repro_torch.core import features as port_features  # noqa: E402
 from repro_torch.des.o3 import O3Config, O3Simulator  # noqa: E402
 from repro_torch.des.workloads import get_benchmark  # noqa: E402
+from repro_torch.serving import faults as port_faults  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -50,6 +53,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "import repro_torch.des.o3, repro_torch.core.features\n"
         "import repro_torch.models.lm, repro_torch.models.registry, repro_torch.serving.engine\n"
         "import repro_torch.nn.attention, repro_torch.configs.registry\n"
+        "import repro_torch.serving.faults, repro_torch.serving.compile_cache\n"
+        "import repro_torch.serving.graphs, repro_torch.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -93,3 +98,42 @@ def test_cuda_without_a_gpu_raises():
     with pytest.raises(RuntimeError, match="CUDA"):
         SimNetEngine()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_faults_copy_is_the_reference_verbatim():
+    """`serving/faults.py` imports nothing of either package, so the copy
+    is the reference's file, byte for byte."""
+    ref = (REPO / "src" / "repro" / "serving" / "faults.py").read_bytes()
+    assert (REPO / "src" / "repro_torch" / "serving" / "faults.py").read_bytes() == ref
+
+
+@pytest.mark.parametrize("spec", [
+    "seed=7;compile=fail_once:1;batch.execute=delay_ms:5,delay_once:2",
+    "seed=11;http.request=after:2,fail_rate:0.4;batch.numeric=corrupt:2;artifact.load=corrupt:1",
+    "seed=3;replica.crash=after:1,fail_rate:0.5,corrupt:3",
+])
+def test_same_fault_plan_gives_the_same_schedule_in_both_packages(spec):
+    """One seed, one arrival sequence: the same decisions at the same
+    sites, the same corrupted payloads and the same spec round trip."""
+    sites = ("artifact.load", "compile", "batch.execute", "batch.numeric", "http.request",
+             "replica.crash")
+    rng = np.random.default_rng(0)
+    order = [sites[i] for i in rng.integers(0, len(sites), 120)]
+    payload = {"artifact.load": b"0123456789abcdef", "batch.numeric": np.arange(6, dtype=np.float64),
+               "replica.crash": np.arange(4, dtype=np.int32)}
+
+    def drive(mod):
+        plan = mod.FaultPlan.from_spec(spec)
+        out = []
+        for site in order:
+            try:
+                got = plan.fire(site, payload.get(site), sleep=lambda s: None)
+                out.append(("ok", got.tobytes() if isinstance(got, np.ndarray) else got))
+            except mod.FaultInjected as e:
+                out.append(("fail", e.site, e.arrival))
+        return plan.to_spec(), plan.decision_log(), plan.snapshot(), out
+
+    ref, port = drive(ref_faults), drive(port_faults)
+    assert port == ref
+    assert any(d[2] != "pass" for d in ref[1])  # the plan did fire
+    assert port_faults.FAULT_SITES == ref_faults.FAULT_SITES

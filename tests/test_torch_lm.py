@@ -363,3 +363,18 @@ def test_generate_leaves_the_callers_state_alone():
     tok2, _, _ = engine.generate(full, first, 4)
     assert torch.equal(tok1, tok2)
     assert int(fin["pos"]) == PROMPT + 4 and not torch.equal(fin["k"], before["k"])
+
+
+def test_step_graphs_are_keyed_by_shape_and_dtype():
+    """One decode-step graph per (state shapes and dtypes, token shape)."""
+    from repro_torch.serving.engine import _program_key
+
+    _, cfg = _configs("tinyllama-1.1b", dtype="float32")
+    model = build_model(cfg)
+    a = model.init_decode_state(2, 48, device="cpu")
+    tok = torch.zeros(2, dtype=torch.int32)
+    assert _program_key(a, tok) == _program_key(model.init_decode_state(2, 48, device="cpu"), tok)
+    for other in (model.init_decode_state(2, 64, device="cpu"),
+                  model.init_decode_state(3, 48, device="cpu"),
+                  {k: v.to(torch.bfloat16) if v.is_floating_point() else v for k, v in a.items()}):
+        assert _program_key(other, tok) != _program_key(a, tok)
