@@ -28,7 +28,15 @@ launches each makes:
   seed), 8 requests x 2048 prompt tokens prefilled, then 64 greedy steps
   through ``DecodeEngine`` with ``use_kernel=True`` (K4 in every layer;
   each step a replay of a CUDA graph), beside the eager steps, and the
-  decode path's exactness (graph vs eager, kernel vs plain, CUDA vs CPU).
+  decode path's exactness (graph vs eager, kernel vs plain, CUDA vs CPU);
+- every other predictor kind (fc2, fc3, c1, rb7, lstm2, tx6) at full
+  width through an artifact and the engine's chunk graph, each held to
+  its eager pass bit for bit and to the CPU (the lstm through cuDNN, held
+  to its step-by-step cells);
+- the training path: a teacher-forced dataset built on the card from the
+  pack's DES traces (bit for bit the CPU's), c3 trained there for two
+  epochs (its first steps' losses held to the CPU's), its prediction
+  errors, and the trained artifact simulated through K1 and plain.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -61,6 +69,18 @@ TF_BENCHES = (("mlb_mixed", 12000), ("sim_loop", 8000), ("mlb_stream", 8000))
 PRED_BENCHES = ("mlb_stream", "mlb_compute", "mlb_branchy", "mlb_mixed",
                 "sim_chase", "sim_loop", "sim_branchy_hard", "sim_phased")
 PRED_LANES, PRED_STEPS = 128, 256  # per workload: 8 x 128 = 1024 live lanes
+OTHER_KINDS = ("fc2", "fc3", "c1", "rb7", "lstm2", "tx6")  # c3 is the main path's
+KIND_LANES, KIND_CPU_LANES = 16, 2  # phase [9]: lanes a workload, on the card / held to the CPU
+LSTM_RTOL = 2e-5  # cuDNN's fused LSTM vs the step-by-step cells (f32, other sum order)
+# phase [10]: the dataset takes the pack's lane split (128 lanes of 256
+# steps a workload: 8 x 256 eager steps, where the reference's default of
+# 8 lanes would take 8 x 4096); c3 trains at the reference's defaults
+TRAIN_EPOCHS, TRAIN_BATCH, TRAIN_LR = 2, 512, 1e-3
+# the card's first steps against the CPU's: f32 sums in another order
+# (cuBLAS vs the CPU's GEMMs) move a loss by ~1e-7 relative; Adam's
+# division by sqrt(v) lets that grow step by step, so only the first 20
+# steps are held, at 1e-4
+TRAIN_CMP_STEPS, TRAIN_RTOL = 20, 1e-4
 LM_ARCH = "gemma3-4b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 8, 2048, 64  # requests, prompt tokens, decode steps
 LM_CACHE = 2112  # prompt + steps
@@ -469,7 +489,7 @@ def predicted_phase(torch, dev, pcfg, params):
         log(f"  {name}: cycles {res['workload_cycles'].tolist()}")
         log(f"  plain torch:     cycles {plain['workload_cycles'].tolist()}")
         check(rel.max() < PRED_RTOL, f"{name} within {PRED_RTOL} of plain (max rel diff {rel.max():.3e})")
-    return routes, launches, arrays
+    return routes, launches, traces, arrays
 
 
 def eager_pass(torch, eng, arrays, n_lanes, chunk):
@@ -682,7 +702,7 @@ def profile_phase(torch, dev, eng, arrays, steps=32, replays=4):
     prog = eng.executable(packed.n_lanes, steps)
 
     def graph():
-        prog.run(eng.params, eng._weights_tag(), [xs] * replays, rw, lc, lambda state: None)
+        prog.run(eng.params, [xs] * replays, rw, lc, lambda state: None)
 
     graph()  # warm
     log_profile("graph replays", profiled(torch, graph, steps * replays))
@@ -881,6 +901,145 @@ def decode_exactness_phase(torch, dev, lm):
           f"{FULL_TOL} x max |logit| = {FULL_TOL * scale:.4f}")
 
 
+def kinds_phase(torch, dev, arrays):
+    """Every other predictor kind at full width (its default config, ctx
+    64), weights from a seed through a predictor artifact, on the pack's
+    8 workloads x KIND_LANES lanes x PRED_STEPS steps in one chunk: the
+    chunk graph against the eager pass, and a reduced pack on the card
+    against the CPU."""
+    import numpy as np
+
+    from repro_torch.checkpoint import PredictorArtifact
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.predictor import (PredictorConfig, inference_mflops, init_predictor,
+                                            lstm_cells, lstm_stack)
+    from repro_torch.kernels import ops
+    from repro_torch.serving.simnet_engine import SimNetEngine
+
+    pack = [{k: v[: KIND_LANES * PRED_STEPS] for k, v in a.items()} for a in arrays]
+    small = [{k: v[: KIND_CPU_LANES * PRED_STEPS] for k, v in a.items()} for a in arrays]
+    log(f"[9] predictor kinds at full width: {len(pack)} workloads x {KIND_LANES} lanes x "
+        f"{PRED_STEPS} steps, chunk {PRED_STEPS}, plain PyTorch (the kernels serve c1/c3's "
+        f"use_kernel only; the lstm runs through cuDNN {torch.backends.cudnn.version()})")
+    for kind in OTHER_KINDS:
+        pcfg = PredictorConfig(kind=kind)
+        params = init_predictor(torch.Generator().manual_seed(SEED), pcfg, dev)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            PredictorArtifact(params, pcfg, sim.SimConfig(ctx_len=pcfg.ctx_len)).save(tmp)
+            art = PredictorArtifact.load(tmp, device=dev)
+            on_cpu = PredictorArtifact.load(tmp, device="cpu")
+        check(art.pcfg == pcfg and all(torch.equal(a, b) for a, b in
+                                       zip(tensors(art.params), tensors(params))),
+              f"{kind}: params through a PredictorArtifact bit for bit")
+        eng = SimNetEngine(art.params, art.pcfg, art.sim_cfg, device=dev)
+        ops.reset_launches()
+        g = eng.simulate_many(pack, n_lanes=KIND_LANES, chunk=PRED_STEPS, timeit=True)
+        check(sum(ops.launches.values()) == 0, f"{kind}: no hand-written kernel launched")
+        check(np.isfinite(g["workload_cycles"]).all(), f"{kind}: totals finite")
+        e = eager_pass(torch, eng, pack, KIND_LANES, PRED_STEPS)
+        check(np.array_equal(g["workload_cycles"], e["workload_cycles"])
+              and np.array_equal(g["workload_overflow"], e["workload_overflow"]),
+              f"{kind}: graph totals equal the eager pass bit for bit")
+        card = eng.simulate_many(small, n_lanes=KIND_CPU_LANES, chunk=PRED_STEPS)
+        cpu = SimNetEngine(on_cpu.params, pcfg, on_cpu.sim_cfg, device="cpu").simulate_many(
+            small, n_lanes=KIND_CPU_LANES, chunk=PRED_STEPS)
+        rel = np.abs(card["workload_cycles"] - cpu["workload_cycles"]) / cpu["workload_cycles"]
+        check(rel.max() < PRED_RTOL, f"{kind}: reduced pack ({card['n_lanes']} lanes) on the card "
+              f"within {PRED_RTOL} of the CPU (max rel diff {rel.max():.3e})")
+        log(f"  {kind}: {inference_mflops(pcfg):.3f} MFLOPs an inference; throughput_ips graph "
+            f"{g['throughput_ips']:.1f} vs eager {e['throughput_ips']:.1f} "
+            f"({g['throughput_ips'] / e['throughput_ips']:.2f}x); first_call_seconds "
+            f"{g['first_call_seconds']:.3f} (eager {e['first_call_seconds']:.3f}); build: "
+            f"{build_log(eng.executable(g['n_lanes'], PRED_STEPS))}")
+        log(f"    cycles {g['workload_cycles'].tolist()}")
+        if kind == "lstm2":
+            state, cur = populated_state(torch, sim, dev, lanes=g["n_lanes"])
+            x = sim.model_input(state, cur["feat"], cur["addr"], sim.SimConfig(ctx_len=pcfg.ctx_len))
+            with torch.no_grad():
+                fused, cells = lstm_stack(art.params, x, pcfg), lstm_cells(art.params, x, pcfg)
+                err = float((fused - cells).abs().max())
+                check(torch.allclose(fused, cells, rtol=LSTM_RTOL, atol=LSTM_RTOL),
+                      f"lstm2: cuDNN's fused LSTM equals the step-by-step cells at B={x.shape[0]} "
+                      f"(max_abs_err {err:.3e}, rtol=atol={LSTM_RTOL})")
+                log(f"  lstm2 trunk at B={x.shape[0]}, N={x.shape[1]}: cuDNN "
+                    f"{time_ms(torch, lambda: lstm_stack(art.params, x, pcfg)):.4f} ms vs step-by-step "
+                    f"cells {time_ms(torch, lambda: lstm_cells(art.params, x, pcfg), iters=5):.4f} ms")
+
+
+def training_phase(torch, dev, traces, arrays):
+    """The training path on the card: the teacher-forced dataset of the
+    pack's traces, c3 trained for TRAIN_EPOCHS epochs, its prediction
+    errors, and the trained artifact simulated through K1 and plain."""
+    import numpy as np
+
+    from repro_torch.checkpoint import PredictorArtifact
+    from repro_torch.core.dataset import build_dataset, teacher_forced_samples
+    from repro_torch.core.predictor import PredictorConfig
+    from repro_torch.core.session import prediction_errors, train_loop
+    from repro_torch.core.simulator import SimConfig
+    from repro_torch.serving.simnet_engine import SimNetEngine
+
+    cfg = SimConfig(ctx_len=Q)
+    log(f"[10] training on the card: dataset of {len(traces)} DES traces x {traces[0].n} "
+        f"instructions at ctx {Q} ({PRED_LANES} lanes a trace), then c3 for {TRAIN_EPOCHS} epochs "
+        f"at batch {TRAIN_BATCH}, lr {TRAIN_LR}")
+    t0 = time.perf_counter()
+    data = build_dataset(traces, cfg, n_lanes=PRED_LANES, seed=SEED, device=dev)
+    n = {k: len(v) for k, v in data.items() if k.endswith("_x")}
+    log(f"  build_dataset: {time.perf_counter() - t0:.2f} s; {n} samples after dedup of "
+        f"{len(traces) * traces[0].n}; X {data['train_x'].dtype} "
+        f"{sum(v.nbytes for v in data.values()) / 1e9:.2f} GB on the host")
+    card = teacher_forced_samples(traces[0], cfg, n_lanes=PRED_LANES, device=dev)
+    cpu = teacher_forced_samples(traces[0], cfg, n_lanes=PRED_LANES, device="cpu")
+    check(all(a.dtype == b.dtype and a.tobytes() == b.tobytes() for a, b in zip(card, cpu)),
+          f"{traces[0].name}: X ({card[0].dtype}, {card[0].shape}) and Y built on the card equal "
+          "the CPU's bit for bit")
+
+    pcfg = PredictorConfig()
+    params, hist = train_loop(data, pcfg, epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                              seed=SEED, device=dev)
+    steps = len(data["train_x"]) // TRAIN_BATCH
+    for ep, secs in enumerate(hist["step_seconds"]):
+        log(f"  epoch {ep}: {steps} steps in {secs:.3f} s, {1e3 * secs / steps:.3f} ms a train step, "
+            f"{steps * TRAIN_BATCH / secs:.0f} samples/s; train loss {hist['train_loss'][ep]:.4f}, "
+            f"val loss {hist['val_loss'][ep]:.4f}")
+    losses = np.asarray(hist["step_loss"])
+    log(f"  step losses: first {losses[:5].round(4).tolist()}, last {losses[-5:].round(4).tolist()}")
+    check(np.isfinite(losses).all() and len(losses) == TRAIN_EPOCHS * steps
+          and losses[-steps:].mean() < losses[:steps].mean(), "losses finite, and the second epoch's "
+          "below the first's")
+    _, cpu_hist = train_loop(data, pcfg, epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED,
+                             device="cpu")
+    want = np.asarray(cpu_hist["step_loss"][:TRAIN_CMP_STEPS])
+    rel = np.abs(losses[:TRAIN_CMP_STEPS] - want) / np.abs(want)
+    log(f"  CPU train_loop, the same weights and batches: {1e3 * cpu_hist['step_seconds'][0] / steps:.3f} "
+        f"ms a step; first {TRAIN_CMP_STEPS} step losses, max rel diff {rel.max():.3e}; over the "
+        f"epoch {float((np.abs(losses[:steps] - cpu_hist['step_loss']) / np.abs(cpu_hist['step_loss'])).max()):.3e}")
+    check(rel.max() < TRAIN_RTOL, f"the first {TRAIN_CMP_STEPS} step losses on the card within "
+          f"{TRAIN_RTOL} of the CPU's")
+    errs = prediction_errors(params, pcfg, data["test_x"], data["test_y"])
+    log(f"  prediction_errors on {len(data['test_x'])} test samples: {errs}")
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        PredictorArtifact(params, pcfg, cfg, metadata={"history": {k: hist[k] for k in
+                                                                   ("train_loss", "val_loss")}}).save(tmp)
+        art = PredictorArtifact.load(tmp, device=dev)
+    res = {}
+    for use_kernel in (True, False):
+        eng = SimNetEngine(art.params, art.pcfg, art.sim_cfg, use_kernel=use_kernel, device=dev)
+        check(eng.fused == use_kernel, f"use_kernel={use_kernel}: {'ring + K1' if use_kernel else 'plain'}")
+        res[use_kernel] = eng.simulate_many(arrays, n_lanes=PRED_LANES, chunk=PRED_STEPS)
+    k1, plain = res[True]["workload_cycles"], res[False]["workload_cycles"]
+    rel = np.abs(k1 - plain) / plain
+    check(np.isfinite(k1).all() and rel.max() < PRED_RTOL,
+          f"trained artifact: ring + K1 totals within {PRED_RTOL} of plain (max rel diff {rel.max():.3e})")
+    log(f"  CPI of the trained c3 (ring + K1) against the DES, {PRED_LANES} lanes a workload "
+        "(reported, not a gate):")
+    for tr, c, total in zip(traces, res[True]["workload_cpi"], k1):
+        log(f"    {tr.name}: predicted {c:.4f} ({total:.0f} cycles) vs DES {tr.cpi:.4f} "
+            f"({tr.total_cycles} cycles), {100 * (c - tr.cpi) / tr.cpi:+.1f}%")
+
+
 def ptxas_entries(log):
     """Per kernel entry in nvcc's -Xptxas -v output: registers, static shared
     memory, stack frame and spills (stores, loads) in bytes."""
@@ -955,14 +1114,17 @@ def main():
     pcfg, params, rows, x = kernel_phase(torch, dev)
     rows += conv_decode_kernel_phase(torch, dev, params, x)
     teacher_forced_phase(torch, dev)
-    routes, launches, arrays = predicted_phase(torch, dev, pcfg, params)
+    routes, launches, traces, arrays = predicted_phase(torch, dev, pcfg, params)
     program_phase(torch, dev, routes, arrays, pcfg)
     launches["conv2s"] = conv2s_path_phase(torch, params, x)
     profile_phase(torch, dev, routes["ring+fused_step"][0], arrays)
-    del x, arrays, routes
+    del x, routes
     lm = lm_phase(torch, dev)
     launches["decode_attn"] = lm["launches"]
     decode_exactness_phase(torch, dev, lm)
+    del lm
+    kinds_phase(torch, dev, arrays)
+    training_phase(torch, dev, traces, arrays)
 
     for r in rows:
         r["launches"] = launches[r["name"]]

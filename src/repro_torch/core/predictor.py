@@ -1,24 +1,36 @@
-"""SimNet latency predictors in PyTorch (paper §2.3) — the port of
+"""SimNet latency predictors in PyTorch (paper §2.3, Table 4) — the port of
 ``repro.core.predictor``.
 
-Models over input (B, N, 50) with N = 1 + ctx_len (current + context).
-This slice ports the 1-D CNNs ``c1``/``c3``: kernel=2 stride=2
-non-overlapping hierarchical convolutions (a k2s2 conv is a reshape + one
-GEMM), then two FC layers. The other kinds of the reference (fc2/fc3, rb7,
-lstm2, ithemal_lstm2, tx6) raise ``NotImplementedError`` until they are
-ported (ROADMAP.md, Queue 1).
+Models over input (B, N, 50) with N = 1 + ctx_len (current + context):
+
+  fc2/fc3   flattened MLPs (the paper's weak baselines)
+  c1/c3     1-D CNNs: kernel=2 stride=2, non-overlapping hierarchical
+            convolutions (a k2s2 conv is a reshape + one GEMM), + 2 FC layers
+  rb7       7 residual blocks (EfficientNet-flavoured), the accuracy champion
+  lstm2     2-layer LSTM over the instruction sequence
+  tx6       6-layer transformer encoder
+  ithemal_lstm2  the Ithemal-style baseline: the same LSTM, fed a fixed
+            window of previous instructions instead of managed context
 
 Output heads: hybrid = per-latency 10-way classification (cycles 0..8 +
 overflow) + regression fallback; reg = regression only.
 
 Parameters are nested dicts of tensors with the reference's layout
-(``{"conv0": {"w": (2C, Co), "b": (Co,)}, ..., "fc0": ..., "fc1": ...}``),
+(``{"conv0": {"w": (2C, Co), "b": (Co,)}, ..., "rb0": {"expand": {...}},
+"lstm0": {"wx", "wh", "b"}, "tx0": {"wqkv", ..., "ln1_g"}, "fc1": ...}``),
 so weights cross between the packages through `params_from_numpy`.
+
+Only c1/c3 reach the hand-written kernels (``use_kernel``); the other kinds
+run plain PyTorch in f32 whatever ``compute_dtype`` is, as the reference's.
+The LSTM runs as one call of ``torch.lstm`` over both layers (cuDNN on the
+card, so a sim step's graph holds a few nodes for it, not 2 x 65 steps of
+cells); `lstm_cells` is its plain step-by-step version.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Tuple
 
 import numpy as np
@@ -30,7 +42,6 @@ from repro_torch.core.simulator import torch_dtype
 
 N_HEADS = 3  # fetch, execution, store
 REG_SCALE = 1.0 / 64.0  # regression head works in scaled-cycle space
-PORTED_KINDS = ("c1", "c3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,26 +84,54 @@ class PredictorConfig:
         return N_HEADS
 
 
-def _require_ported(cfg: PredictorConfig):
-    if cfg.kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"predictor kind {cfg.kind!r} is not ported to repro_torch yet "
-            f"(ported: {', '.join(PORTED_KINDS)}); see ROADMAP.md Queue 1, "
-            "'other predictor kinds'"
-        )
+def _dense_shapes(d_in, d_out):
+    return {"w": (d_in, d_out), "b": (d_out,)}
 
 
 def param_shapes(cfg: PredictorConfig) -> dict:
-    """{layer: {"w": shape, "b": shape}} of a c1/c3 model."""
-    _require_ported(cfg)
-    depth = int(cfg.kind[1])
-    chans = [N_FEATURES] + list(cfg.channels[:depth])
-    shapes = {f"conv{i}": {"w": (2 * chans[i], chans[i + 1]), "b": (chans[i + 1],)}
-              for i in range(depth)}
-    n_pos = cfg.seq_padded >> depth
-    shapes["fc0"] = {"w": (n_pos * chans[-1], cfg.hidden), "b": (cfg.hidden,)}
-    shapes["fc1"] = {"w": (cfg.hidden, cfg.out_dim), "b": (cfg.out_dim,)}
+    """The params tree of ``cfg.kind`` with a shape at every leaf, in the
+    reference's layer order. An unknown kind raises ``ValueError``."""
+    kind = cfg.kind
+    if kind in ("fc2", "fc3"):
+        depth = int(kind[2])
+        dims = [cfg.seq_in * N_FEATURES] + [cfg.hidden * 2] * (depth - 1) + [cfg.out_dim]
+        return {f"fc{i}": _dense_shapes(dims[i], dims[i + 1]) for i in range(depth)}
+    if kind in ("c1", "c3"):
+        depth = int(kind[1])
+        chans = [N_FEATURES] + list(cfg.channels[:depth])
+        shapes = {f"conv{i}": _dense_shapes(2 * chans[i], chans[i + 1]) for i in range(depth)}
+        d_trunk = (cfg.seq_padded >> depth) * chans[-1]
+    elif kind.startswith("rb"):
+        c = cfg.channels[-1]
+        shapes = {"stem": _dense_shapes(2 * N_FEATURES, c)}  # k2s2 stem
+        for i in range(cfg.rb_blocks):
+            shapes[f"rb{i}"] = {"expand": _dense_shapes(c, 2 * c),
+                                "mix": _dense_shapes(4 * c, 2 * c),  # k2 conv of 2c channels
+                                "project": _dense_shapes(2 * c, c)}
+        d_trunk = (cfg.seq_padded >> cfg.n_stride2) * c
+    elif kind in ("lstm2", "ithemal_lstm2"):
+        h = cfg.lstm_hidden
+        shapes = {f"lstm{l}": {"wx": (d_in, 4 * h), "wh": (h, 4 * h), "b": (4 * h,)}
+                  for l, d_in in enumerate((N_FEATURES, h))}
+        d_trunk = h
+    elif kind == "tx6":
+        d = cfg.tx_dim
+        shapes = {"proj": _dense_shapes(N_FEATURES, d)}
+        for l in range(cfg.tx_layers):
+            shapes[f"tx{l}"] = {"wqkv": (d, 3 * d), "wo": (d, d), "ff1": _dense_shapes(d, 2 * d),
+                                "ff2": _dense_shapes(2 * d, d), "ln1_g": (d,), "ln2_g": (d,)}
+        d_trunk = d
+    else:
+        raise ValueError(kind)
+    shapes["fc0"] = _dense_shapes(d_trunk, cfg.hidden)
+    shapes["fc1"] = _dense_shapes(cfg.hidden, cfg.out_dim)
     return shapes
+
+
+def _map_leaves(fn, shapes, path=()):
+    """``{name: fn(path, shape)}`` over the nested shape tree."""
+    return {k: _map_leaves(fn, v, path + (k,)) if isinstance(v, dict) else fn(path + (k,), v)
+            for k, v in shapes.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -102,36 +141,43 @@ def param_shapes(cfg: PredictorConfig) -> dict:
 def init_predictor(generator: torch.Generator, cfg: PredictorConfig,
                    device: DeviceLike = None) -> dict:
     """Fan-in scaled truncated-normal weights (2-sigma, as the reference's
-    ``dense_init``) and zero biases, drawn from ``generator`` in layer
-    order. The generator must be a CPU generator, so the same seed gives
-    the same weights on every device."""
+    ``dense_init``), zero biases and unit norm gains, the weights drawn
+    from ``generator`` in layer order. The generator must be a CPU
+    generator, so the same seed gives the same weights on every device."""
     dev = resolve_device(device)
-    params = {}
-    for name, s in param_shapes(cfg).items():
-        fan_in = s["w"][0]
-        std = 1.0 / math.sqrt(fan_in)
-        w = torch.empty(s["w"], dtype=torch.float32)
+
+    def leaf(path, shape):
+        name = path[-1]
+        if name == "b":
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+        if name.endswith("_g"):  # RMS-norm gain
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+        std = 1.0 / math.sqrt(shape[0])
+        w = torch.empty(shape, dtype=torch.float32)
         torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-        params[name] = {"w": w.to(dev), "b": torch.zeros(s["b"], dtype=torch.float32, device=dev)}
-    return params
+        return w.to(dev)
+
+    return _map_leaves(leaf, param_shapes(cfg))
 
 
 def params_from_numpy(tree, pcfg: PredictorConfig, device: DeviceLike = None) -> dict:
     """The reference's params (a nested dict of arrays, as its
     ``init_predictor`` or ``PredictorArtifact`` give them) as the port's
-    params on ``device``. Shapes are checked against ``pcfg``."""
+    params on ``device``. Every leaf's shape is checked against ``pcfg``."""
     dev = resolve_device(device)
-    out = {}
-    for name, s in param_shapes(pcfg).items():
-        if name not in tree:
-            raise ValueError(f"params lack layer {name!r} for kind {pcfg.kind!r}")
-        out[name] = {}
-        for k in ("w", "b"):
-            a = np.asarray(tree[name][k], dtype=np.float32)
-            if a.shape != s[k]:
-                raise ValueError(f"{name}.{k} has shape {a.shape}, expected {s[k]}")
-            out[name][k] = torch.from_numpy(a.copy()).to(dev)
-    return out
+
+    def leaf(path, shape):
+        node = tree
+        for k in path:
+            if not isinstance(node, dict) or k not in node:
+                raise ValueError(f"params lack {'.'.join(path)!r} for kind {pcfg.kind!r}")
+            node = node[k]
+        a = np.asarray(node, dtype=np.float32)
+        if a.shape != shape:
+            raise ValueError(f"{'.'.join(path)} has shape {a.shape}, expected {shape}")
+        return torch.from_numpy(a.copy()).to(dev)
+
+    return _map_leaves(leaf, param_shapes(pcfg))
 
 
 # ---------------------------------------------------------------------------
@@ -158,28 +204,126 @@ def _dense(params, x, act=None):
     return torch.relu(y) if act == "relu" else y
 
 
+def _rms(x, g):
+    return x * torch.rsqrt(torch.mean(x * x, -1, keepdim=True) + 1e-6) * g
+
+
+def lstm_cells(params, x, cfg: PredictorConfig):
+    """The two LSTM layers over ``x`` (B, N, F) step by step, as the
+    reference's scan of cells: the newest row last, zero f32 state, gates
+    split i, f, g, o. Returns the second layer's last hidden state (B, H).
+    The plain version of `lstm_stack`."""
+    B = x.shape[0]
+    seq = torch.flip(x, dims=(1,)).transpose(0, 1)  # (N, B, F), newest last
+    for l in range(2):
+        lp = params[f"lstm{l}"]
+        h = c = x.new_zeros((B, cfg.lstm_hidden), dtype=torch.float32)
+        hs = []
+        for x_t in seq:
+            z = x_t @ lp["wx"] + h @ lp["wh"] + lp["b"]
+            i, f, g, o = torch.chunk(z, 4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            hs.append(h)
+        seq = torch.stack(hs)
+    return seq[-1]
+
+
+def lstm_stack(params, x, cfg: PredictorConfig):
+    """`lstm_cells` as ONE call of ``torch.lstm`` over both layers (cuDNN on
+    the card; ATen's loop on the CPU). PyTorch's gate order is the
+    reference's (i, f, g, o); its layer computes ``x W_ih^T + b_ih + h
+    W_hh^T + b_hh``, so ``W_ih = wx^T``, ``W_hh = wh^T``, ``b_ih = b`` and
+    ``b_hh = 0``. On the card this path is cuDNN or nothing: with cuDNN
+    unavailable or disabled it raises rather than run ATen's per-step
+    kernels unannounced."""
+    if x.is_cuda and not (torch.backends.cudnn.is_available() and torch.backends.cudnn.enabled):
+        raise RuntimeError("lstm on the card runs through cuDNN, which is unavailable or disabled")
+    flat = []
+    for l in range(2):
+        lp = params[f"lstm{l}"]
+        flat += [lp["wx"].t().contiguous(), lp["wh"].t().contiguous(), lp["b"],
+                 torch.zeros_like(lp["b"])]
+    seq = torch.flip(x, dims=(1,))  # newest row last
+    h0 = x.new_zeros((2, x.shape[0], cfg.lstm_hidden), dtype=torch.float32)
+    # cuDNN's training mode (kept state for the backward) only where a
+    # gradient is wanted: a simulation step runs the inference mode, under
+    # a graph or eagerly alike
+    train = torch.is_grad_enabled() and any(t.requires_grad for t in [x] + flat)
+    with warnings.catch_warnings():
+        # cuDNN packs the separate weight tensors into its own buffer at
+        # every call (its warning says so); the reference's (in, out)
+        # layout is kept as the one source of the weights
+        warnings.filterwarnings("ignore", message="RNN module weights are not part")
+        out, _, _ = torch.lstm(seq, (h0, h0), flat, True, 2, 0.0, train, False, True)
+    return out[:, -1]
+
+
 def apply_trunk(params, x, cfg: PredictorConfig, use_kernel: bool = False):
     """(B, N, 50) -> (B, hidden) features before the output head.
 
-    With ``use_kernel`` the conv stack runs in `kernels.ops.cnn_trunk`,
-    which computes in f32 whatever ``compute_dtype`` is (as the
-    reference's kernel wrapper does); the unfused path honours it."""
-    _require_ported(cfg)
+    With ``use_kernel`` the c1/c3 conv stack runs in
+    `kernels.ops.cnn_trunk`, which computes in f32 whatever
+    ``compute_dtype`` is (as the reference's kernel wrapper does); the
+    unfused path honours it. Other kinds ignore ``use_kernel`` and round
+    their input through ``compute_dtype``, then compute in f32."""
     kind = cfg.kind
-    depth = int(kind[1])
     cdt = torch_dtype(cfg.compute_dtype)
-    h = _pad_seq(x.to(cdt), cfg)
-    if use_kernel:
-        from repro_torch.kernels import ops as kops
+    x = x.to(cdt)
+    if kind not in ("c1", "c3"):
+        x = x.to(torch.float32)  # the bf16 path is the CNN trunk's alone
+    if kind in ("fc2", "fc3"):
+        depth = int(kind[2])
+        h = x.reshape(x.shape[0], -1)
+        for i in range(depth - 1):
+            h = _dense(params[f"fc{i}"], h, act="relu")
+        return h, params[f"fc{depth - 1}"]
+    if kind in ("c1", "c3"):
+        depth = int(kind[1])
+        h = _pad_seq(x, cfg)
+        if use_kernel:
+            from repro_torch.kernels import ops as kops
 
-        h = kops.cnn_trunk([params[f"conv{i}"] for i in range(depth)], h)
+            h = kops.cnn_trunk([params[f"conv{i}"] for i in range(depth)], h)
+        else:
+            for i in range(depth):
+                p = {"w": params[f"conv{i}"]["w"].to(cdt), "b": params[f"conv{i}"]["b"].to(cdt)}
+                h = conv2s(p, h)
+        h = h.reshape(h.shape[0], -1).to(torch.float32)
+    elif kind.startswith("rb"):
+        h = conv2s(params["stem"], _pad_seq(x, cfg))  # plain, never the K3 kernel
+        for i in range(cfg.rb_blocks):
+            blk = params[f"rb{i}"]
+            y = _dense(blk["expand"], h, act="relu")
+            if i < cfg.n_stride2 - 1:  # static structure: the stem did one stride 2
+                y = conv2s(blk["mix"], y)
+                skip = 0.5 * (h[:, 0::2] + h[:, 1::2])  # avg-pool shortcut
+            else:  # causal k2 s1: each row beside the row before it
+                yp = torch.nn.functional.pad(y, (0, 0, 1, 0))
+                y = torch.relu(torch.cat([yp[:, :-1], y], dim=-1) @ blk["mix"]["w"]
+                               + blk["mix"]["b"])
+                skip = h
+            h = skip + _dense(blk["project"], y)
+        h = h.reshape(h.shape[0], -1)
+    elif kind in ("lstm2", "ithemal_lstm2"):
+        h = lstm_stack(params, x, cfg)
+    elif kind == "tx6":
+        d, nh = cfg.tx_dim, cfg.tx_heads
+        h = _dense(params["proj"], x)
+        B, N, _ = h.shape
+        for l in range(cfg.tx_layers):
+            blk = params[f"tx{l}"]
+            qkv = (_rms(h, blk["ln1_g"]) @ blk["wqkv"]).reshape(B, N, 3, nh, d // nh)
+            q, k, v = qkv.unbind(2)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d / nh)
+            probs = torch.softmax(logits, dim=-1)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, N, d)
+            h = h + ctx @ blk["wo"]
+            h = h + _dense(blk["ff2"], torch.relu(_dense(blk["ff1"], _rms(h, blk["ln2_g"]))))
+        h = h.mean(dim=1)
     else:
-        for i in range(depth):
-            p = {"w": params[f"conv{i}"]["w"].to(cdt), "b": params[f"conv{i}"]["b"].to(cdt)}
-            h = conv2s(p, h)
-    h = h.reshape(h.shape[0], -1).to(torch.float32)
-    h = _dense(params["fc0"], h, act="relu")
-    return h, params["fc1"]
+        raise ValueError(kind)
+    return _dense(params["fc0"], h, act="relu"), params["fc1"]
 
 
 # repro-lint: scan-reachable — called from the per-step body

@@ -9,8 +9,10 @@ decoder's step keywords are fixed per engine, so they are part of every
 key. Static buffers hold the token, the KV caches and ``pos``; the argmax
 runs inside the graph, which writes the next token back into the token
 buffer and advances ``pos`` in place, so a pass is ``n_steps`` replays with
-one copy of each step's token into the output. On the CPU the steps run
-eagerly in a Python loop.
+one copy of each step's token into the output. The graph reads the
+weights where they lie, so an in-place update of them is seen at the next
+replay; an engine whose ``params`` were rebound to other tensors captures
+its step again. On the CPU the steps run eagerly in a Python loop.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.serving.graphs import CapturedGraph
+from repro_torch.serving.graphs import CapturedGraph, ParamsBinding
 
 
 @dataclasses.dataclass
@@ -69,6 +71,7 @@ class StepGraph:
 
     def __init__(self, decoder: StatefulDecoder, params, state, token: torch.Tensor):
         self.lock = threading.Lock()
+        self.binding = ParamsBinding(params)  # the weights the capture reads
         self.state = copy_state(state)
         self.token = token.clone()
 
@@ -119,11 +122,12 @@ class DecodeEngine:
 
     def step_graph(self, state, token: torch.Tensor) -> StepGraph:
         """This engine's decode-step graph for ``state``'s and ``token``'s
-        shapes and dtypes (captured at the first request)."""
+        shapes and dtypes (captured at the first request, and again once
+        ``params`` holds other tensors)."""
         key = _program_key(state, token)
         with self._lock:
             graph = self._graphs.get(key)
-            if graph is None:
+            if graph is None or not graph.binding.same_tensors(self.params):
                 graph = self._graphs[key] = StepGraph(self.decoder, self.params, state, token)
             return graph
 

@@ -12,15 +12,22 @@ kernel its capture recorded and adds them at every replay, so the counts
 keep meaning the launches the card ran. The build's own calls (the warm-up
 and the capture) are set-up and leave the counts as they were.
 
+A graph reads its weights at fixed addresses, so an engine whose
+``params`` may be rebound to other tensors checks a `ParamsBinding`: the
+SimNet chunk graph refills its parameter slots, the decode-step graph is
+captured again.
+
 Nothing falls back: a capture, an instantiation or a replay that fails
 raises.
 """
 from __future__ import annotations
 
 import time
+import weakref
 
 import torch
 
+from repro_torch._tree import tree_leaves
 from repro_torch.kernels import ops
 
 
@@ -65,3 +72,29 @@ class CapturedGraph:
         self.graph.replay()
         for k, n in self.launches.items():
             ops.launches[k] += n
+
+
+class ParamsBinding:
+    """Which weights a graph was given: weak references to the tensors of
+    a params tree and each one's version counter.
+
+    `same_tensors` holds when another tree has the very same tensors, in
+    the same order; a tree rebound to new tensors fails it even when the
+    versions agree (a new tensor starts at version 0, as the old one did).
+    `unchanged` also needs every version as it was: an in-place update
+    bumps it. A weak reference dies with its tensor, so a freed tensor's
+    address or ``id`` reused by a new one never passes for it.
+    """
+
+    def __init__(self, params):
+        leaves = list(tree_leaves(params))
+        self._refs = [weakref.ref(t) for t in leaves]
+        self._versions = [t._version for t in leaves]
+
+    def same_tensors(self, params) -> bool:
+        leaves = list(tree_leaves(params))
+        return len(leaves) == len(self._refs) and all(
+            r() is t for r, t in zip(self._refs, leaves))
+
+    def unchanged(self, params) -> bool:
+        return self.same_tensors(params) and [t._version for t in tree_leaves(params)] == self._versions

@@ -22,7 +22,8 @@ buffers: the `SimState` planes, the chunk's ``xs``, the per-lane retire
 width and context, and parameter slots. The capture ends by copying the
 chunk's final state into the static state, so consecutive replays chain.
 A pass zeroes the state, refills the slots if the entry last ran other
-weights, then per chunk copies ``xs`` in and replays; the totals are read
+weights (other tensors, or the same ones updated in place: a
+`ParamsBinding`), then per chunk copies ``xs`` in and replays; the totals are read
 from the static state after the last chunk. Two engines of the same kind
 share one graph. On the CPU a program is the eager chunk function
 (`ChunkProgram`) under the same cache and counters.
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._tree import tree_map
 from repro_torch.core import features as F
 from repro_torch.core.predictor import (
     PredictorConfig,
@@ -63,7 +65,7 @@ from repro_torch.serving.compile_cache import (
     global_cache,
     lane_bucket,
 )
-from repro_torch.serving.graphs import CapturedGraph
+from repro_torch.serving.graphs import CapturedGraph, ParamsBinding
 
 
 class NumericError(RuntimeError):
@@ -78,20 +80,6 @@ class NumericError(RuntimeError):
             f"non-finite cycle totals for workload(s) {self.bad_workloads}: "
             f"{[float(cycles[i]) for i in self.bad_workloads]}"
         )
-
-
-def _tree_map(fn, params):
-    if isinstance(params, dict):
-        return {k: _tree_map(fn, v) for k, v in params.items()}
-    return fn(params)
-
-
-def _leaves(params):
-    if isinstance(params, dict):
-        for v in params.values():
-            yield from _leaves(v)
-    else:
-        yield params
 
 
 def chunk_specs(n_lanes: int, chunk: int) -> Dict[str, tuple]:
@@ -145,10 +133,9 @@ class ChunkProgram:
         self.key = key
         self.device = device
 
-    def run(self, params, weights_tag, chunks, retire_width, lane_ctx, finish):
+    def run(self, params, chunks, retire_width, lane_ctx, finish):
         """One pass from the zero state through ``chunks``; returns
-        ``finish(final state)``. ``weights_tag`` is unused here (the weights
-        are an argument of every chunk)."""
+        ``finish(final state)``."""
         k = self.key
         state = init_state(k.n_lanes, k.sim_cfg, self.device)
         for xs in chunks:
@@ -178,8 +165,8 @@ class ChunkGraph:
         self.lane_ctx = torch.full((L,), cfg.ctx_len, dtype=torch.int32, device=device)
         # parameter slots: the building engine's weights first, refilled per pass
         # whenever the entry last ran other weights
-        self.params = None if params is None else _tree_map(torch.clone, params)
-        self._bound = None  # weights tag of the slots' contents
+        self.params = None if params is None else tree_map(torch.clone, params)
+        self._bound = None  # ParamsBinding of the weights the slots hold
 
         def body():
             out = run_chunk(key.predictor, cfg, key.use_kernel, self.params, self.state,
@@ -190,13 +177,13 @@ class ChunkGraph:
 
         self.graph = CapturedGraph(body, device)
 
-    def run(self, params, weights_tag, chunks, retire_width, lane_ctx, finish):
+    def run(self, params, chunks, retire_width, lane_ctx, finish):
         """One pass: zero the state, bind the weights, copy each chunk in
         and replay; returns ``finish(final state)``, read under the lock."""
         with self.lock:
-            if self.params is not None and self._bound != weights_tag:
+            if self.params is not None and not (self._bound and self._bound.unchanged(params)):
                 _copy_tree(self.params, params)
-                self._bound = weights_tag
+                self._bound = ParamsBinding(params)
             for buf in self.state:
                 buf.zero_()
             self.retire_width.copy_(retire_width)
@@ -236,8 +223,8 @@ class SimNetEngine:
         )
         self.use_kernel = use_kernel
         self.cache = cache if cache is not None else global_cache(self.device)
-        self.params = None if params is None else _tree_map(lambda t: t.to(self.device), params)
-        self._owner = object()  # with the leaves' versions: which weights a slot holds
+        # may be rebound, or updated in place: a resident graph sees either
+        self.params = None if params is None else tree_map(lambda t: t.to(self.device), params)
 
     @property
     def fused(self) -> bool:
@@ -280,13 +267,6 @@ class SimNetEngine:
             raise ValueError(f"the cache holds this key's program on {prog.device}, not on "
                              f"{dev}: a cache serves one device")
         return prog
-
-    def _weights_tag(self):
-        """Identifies the weights a program's slots hold: this engine's,
-        as they are now (an in-place update bumps a leaf's version)."""
-        if self.params is None:
-            return None
-        return (self._owner, tuple(t._version for t in _leaves(self.params)))
 
     # -- packed multi-workload path ------------------------------------
 
@@ -342,7 +322,7 @@ class SimNetEngine:
             t0 = time.perf_counter()
             chunks = staged if staged is not None else (
                 packed_tensors(packed, host, lo, lo + chunk) for lo in offsets)
-            cycles, overflow = prog.run(self.params, self._weights_tag(), chunks, rw, lc, finish)
+            cycles, overflow = prog.run(self.params, chunks, rw, lc, finish)
             return time.perf_counter() - t0, cycles, overflow
 
         dt, cycles, overflow = one_pass()

@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs on six xdist workers on eight cores: one intra-op thread a
+# process keeps torch from oversubscribing the cores the JAX tests time on
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
@@ -203,6 +206,25 @@ def test_port_written_artifact_loads_through_the_reference(port_artifact):
         for k in ("w", "b"):
             assert np.asarray(ref.params[name][k]).tobytes() == art.params[name][k].numpy().tobytes()
     assert RefArtifact.exists(port_artifact) and PredictorArtifact.exists(port_artifact)
+
+
+@pytest.mark.parametrize("kind", ["fc2", "fc3", "c1", "c3", "rb7", "lstm2", "ithemal_lstm2", "tx6"])
+def test_every_kind_round_trips_through_the_port_and_the_reference(tmp_path, kind):
+    """A port-written artifact of every kind: the npz keys are the
+    reference's '/'-joined paths (three levels deep for rb7's blocks), the
+    port reads back every leaf bit for bit, and so does the reference."""
+    pcfg = PredictorConfig(kind=kind, ctx_len=CTX)
+    params = init_predictor(torch.Generator().manual_seed(3), pcfg, "cpu")
+    path = PredictorArtifact(params, pcfg, SimConfig(ctx_len=CTX)).save(tmp_path / kind)
+    keys = sorted(_flatten({"params": params}))
+    with np.load(next(path.glob("step_*/*.npz"))) as z:
+        assert sorted(z.files) == keys
+    if kind == "rb7":
+        assert "params/rb0/expand/w" in keys
+    art, ref = PredictorArtifact.load(path, device="cpu"), RefArtifact.load(path)
+    assert art.pcfg == pcfg and ref.pcfg == RefPredictorConfig(kind=kind, ctx_len=CTX)
+    _same(art.params, params)
+    _same(ref.params, params)
 
 
 def test_one_artifact_gives_the_reference_engines_totals(ref_artifact):

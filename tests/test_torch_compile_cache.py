@@ -11,6 +11,9 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs on six xdist workers on eight cores: one intra-op thread a
+# process keeps torch from oversubscribing the cores the JAX tests time on
+torch.set_num_threads(1)
 
 from repro.analysis import key_irrelevant_fields  # noqa: E402
 from repro.serving.compile_cache import ExecutableKey as RefExecutableKey  # noqa: E402

@@ -5,6 +5,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs on six xdist workers on eight cores: one intra-op thread a
+# process keeps torch from oversubscribing the cores the JAX tests time on
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
@@ -22,6 +25,7 @@ from repro_torch.serving import faults  # noqa: E402
 from repro_torch.serving.compile_cache import CompileCache as PortCache  # noqa: E402
 from repro_torch.serving.compile_cache import global_cache  # noqa: E402
 from repro_torch.serving.faults import FaultPlan, FaultSpec  # noqa: E402
+from repro_torch.serving.graphs import ParamsBinding  # noqa: E402
 from repro_torch.serving.simnet_engine import (  # noqa: E402
     ChunkProgram,
     NumericError,
@@ -198,3 +202,41 @@ def test_batch_numeric_fault_raises_numeric_error(arrs):
         faults.clear()
     assert np.isfinite(ok["workload_cycles"]).all()
     assert plan.snapshot()["sites"]["batch.numeric"]["corruptions"] == 1
+
+
+# ------------------------------------------------ rebinding the weights
+
+
+def test_params_binding_tells_rebound_and_updated_weights_apart():
+    """The check a resident graph makes before a pass: the same tensors
+    (new containers do not matter), the same tensors updated in place, and
+    other tensors at the same versions."""
+    params = {"a": {"w": torch.ones(2, 2), "b": torch.zeros(2)}, "c": [torch.ones(3)]}
+    bound = ParamsBinding(params)
+    assert bound.same_tensors(params) and bound.unchanged(params)
+    assert bound.unchanged({"a": dict(params["a"]), "c": list(params["c"])})
+    with torch.no_grad():
+        params["a"]["b"] += 1.0
+    assert bound.same_tensors(params) and not bound.unchanged(params)
+    bound = ParamsBinding(params)
+    other = {"a": {k: v.clone() for k, v in params["a"].items()}, "c": [params["c"][0].clone()]}
+    assert [t._version for t in other["a"].values()] == [0, 0]
+    assert not bound.same_tensors(other) and not bound.unchanged(other)
+    assert not bound.same_tensors({"a": params["a"]})  # fewer tensors
+    params["c"][0] = torch.ones(3)  # the old tensor is freed: its weak reference dies
+    assert not bound.same_tensors(params)
+
+
+def test_rebound_params_take_effect_on_the_cpu(arrs, weights):
+    _, _, tree = weights
+    pcfg = PredictorConfig(kind="c3", ctx_len=CTX)
+    eng = SimNetEngine(params_from_numpy(tree, pcfg, "cpu"), pcfg, use_kernel=True, device="cpu",
+                       cache=PortCache())
+    first = eng.simulate_many(arrs, n_lanes=2, chunk=64)["workload_cycles"]
+    other = params_from_numpy(tree, pcfg, "cpu")
+    other["fc1"]["b"] += 0.5
+    eng.params = other
+    got = eng.simulate_many(arrs, n_lanes=2, chunk=64)["workload_cycles"]
+    fresh = SimNetEngine(other, pcfg, use_kernel=True, device="cpu", cache=PortCache())
+    np.testing.assert_array_equal(got, fresh.simulate_many(arrs, n_lanes=2, chunk=64)["workload_cycles"])
+    assert not np.array_equal(got, first)

@@ -17,6 +17,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs on six xdist workers on eight cores: one intra-op thread a
+# process keeps torch from oversubscribing the cores the JAX tests time on
+torch.set_num_threads(1)
 
 from repro_torch.configs.base import reduced  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
@@ -43,6 +46,7 @@ CTX = 16
 BENCHES = [("mlb_stream", 1300), ("sim_loop", 900)]
 LANES, CHUNK = 4, 64  # 8 lanes in all; ~325 steps a lane, so six chunks chain
 ROUTES = ["ring+fused_step", "roll+cnn_trunk", "plain", "teacher-forced"]
+OTHER_KINDS = ["fc2", "fc3", "c1", "rb7", "lstm2", "ithemal_lstm2", "tx6"]
 KERNEL = {"ring+fused_step": "fused_step", "roll+cnn_trunk": "cnn_trunk"}
 B, PROMPT, STEPS = 2, 40, 8
 
@@ -62,8 +66,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _params(seed, device):
-    pcfg = PredictorConfig(kind="c3", ctx_len=CTX)
+def _params(seed, device, kind="c3"):
+    pcfg = PredictorConfig(kind=kind, ctx_len=CTX)
     return init_predictor(torch.Generator().manual_seed(seed), pcfg, device), pcfg
 
 
@@ -141,6 +145,40 @@ def test_graph_binds_each_engines_weights(cuda, arrs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", OTHER_KINDS)
+def test_every_kind_graph_equals_eager(cuda, arrs, kind):
+    """Every other predictor kind through its chunk graph: totals equal the
+    eager pass bit for bit, and no kernel runs (``use_kernel`` reaches only
+    c1/c3, and c1's trunk kernel is C3-only, so c1 runs plain; rb7's convs
+    are plain too); lstm runs through cuDNN."""
+    params, pcfg = _params(0, cuda, kind)
+    eng = SimNetEngine(params, pcfg, SimConfig(ctx_len=CTX), use_kernel=kind != "c1", device=cuda,
+                       cache=CompileCache())
+    ops.reset_launches()
+    got = eng.simulate_many(arrs, n_lanes=LANES, chunk=CHUNK, timeit=True)
+    assert sum(ops.launches.values()) == 0
+    assert isinstance(eng.executable(2 * LANES, CHUNK), ChunkGraph)
+    want_cycles, want_overflow = _eager_totals(eng, arrs)
+    np.testing.assert_array_equal(got["workload_cycles"], want_cycles)
+    np.testing.assert_array_equal(got["workload_overflow"], want_overflow)
+
+
+@pytest.mark.cuda
+def test_rebound_params_reach_the_chunk_graph(cuda, arrs):
+    """``engine.params = other`` (new tensors, at version 0 as the old ones
+    were): the resident graph refills its slots and gives a fresh engine's
+    totals."""
+    cache = CompileCache()
+    eng = _engine("ring+fused_step", cuda, cache, seed=0)
+    first = eng.simulate_many(arrs, n_lanes=LANES, chunk=CHUNK)["workload_cycles"]
+    eng.params, _ = _params(1, cuda)
+    got = eng.simulate_many(arrs, n_lanes=LANES, chunk=CHUNK)["workload_cycles"]
+    fresh = _engine("ring+fused_step", cuda, CompileCache(), seed=1)
+    np.testing.assert_array_equal(got, fresh.simulate_many(arrs, n_lanes=LANES, chunk=CHUNK)["workload_cycles"])
+    assert not np.array_equal(got, first) and cache.stats()["misses"] == 1
+
+
+@pytest.mark.cuda
 def test_graph_passes_from_many_threads_take_turns(cuda, arrs):
     """A graph entry is not reentrant: eight threads run passes of two
     engines (other weights) through one cold cache at once; the graph is
@@ -210,3 +248,18 @@ def test_graph_decode_equals_eager(cuda, use_kernel):
         assert torch.equal(full[k], before[k]), k
     again, _, _ = engine.generate(full, first, STEPS)  # the same graph, replayed
     assert torch.equal(again, got) and len(engine._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_rebound_params_reach_the_decode_step_graph(cuda):
+    """``engine.params = other``: the next pass captures the step again
+    with the new weights and decodes as a fresh engine does."""
+    model, params, full, first = _decode_inputs(cuda)
+    engine = DecodeEngine(lm_decoder(model), params)
+    before, _, _ = engine.generate(full, first, STEPS)
+    other = model.init(torch.Generator().manual_seed(4), device=cuda)
+    engine.params = other
+    got, _, _ = engine.generate(full, first, STEPS)
+    want, _, _ = DecodeEngine(lm_decoder(model), other).generate(full, first, STEPS)
+    assert torch.equal(got, want) and not torch.equal(got, before)
+    assert len(engine._graphs) == 1  # the stale graph was replaced, not kept beside

@@ -13,13 +13,22 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs on six xdist workers on eight cores: one intra-op thread a
+# process keeps torch from oversubscribing the cores the JAX tests time on
+torch.set_num_threads(1)
 
 from repro.core import features as ref_features  # noqa: E402
+from repro.des import history as ref_history  # noqa: E402
+from repro.des import multicore as ref_multicore  # noqa: E402
+from repro.des import workloads as ref_workloads  # noqa: E402
 from repro.des.o3 import O3Config as RefO3Config  # noqa: E402
 from repro.des.o3 import O3Simulator as RefO3Simulator  # noqa: E402
 from repro.des.workloads import get_benchmark as ref_get_benchmark  # noqa: E402
 from repro.serving import faults as ref_faults  # noqa: E402
 from repro_torch.core import features as port_features  # noqa: E402
+from repro_torch.des import history as port_history  # noqa: E402
+from repro_torch.des import multicore as port_multicore  # noqa: E402
+from repro_torch.des import workloads as port_workloads  # noqa: E402
 from repro_torch.des.o3 import O3Config, O3Simulator  # noqa: E402
 from repro_torch.des.workloads import get_benchmark  # noqa: E402
 from repro_torch.serving import faults as port_faults  # noqa: E402
@@ -55,6 +64,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "import repro_torch.nn.attention, repro_torch.configs.registry\n"
         "import repro_torch.serving.faults, repro_torch.serving.compile_cache\n"
         "import repro_torch.serving.graphs, repro_torch.checkpoint\n"
+        "import repro_torch.core.dataset, repro_torch.core.session, repro_torch.training.optimizer\n"
+        "import repro_torch.des.history, repro_torch.des.multicore\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -82,6 +93,52 @@ def test_des_copy_gives_the_reference_traces(bench, n):
     for k in ra:
         np.testing.assert_array_equal(ra[k], pa[k], err_msg=k)
         assert ra[k].dtype == pa[k].dtype, k
+
+
+@pytest.mark.parametrize("bench,caches,bpred", [
+    ("mlb_mixed", None, "bimodal"),
+    ("sim_branchy_hard", {"l1d_size": 8 * 1024, "l2_size": 64 * 1024}, "tage"),
+])
+def test_history_copy_gives_the_reference_features(bench, caches, bpred):
+    """The 14 history-context features (mispred, fetch level / table walks
+    / write-backs, data level / table walks / write-backs), and the
+    label-free trace built on them."""
+    prog = ref_get_benchmark(bench, 1500)
+    ref = ref_history.history_features(prog, caches, bpred)
+    port = port_history.history_features(get_benchmark(bench, 1500), caches, bpred)
+    assert list(port) == list(ref)
+    assert sum(1 if ref[k].ndim == 1 else ref[k].shape[1] for k in ref) == 14
+    for k in ref:
+        np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
+        assert port[k].dtype == ref[k].dtype, k
+    rt = ref_history.trace_with_history(prog, caches, bpred)
+    pt = port_history.trace_with_history(get_benchmark(bench, 1500), caches, bpred)
+    for f in dataclasses.fields(rt):
+        a, b = getattr(rt, f.name), getattr(pt, f.name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+
+
+def test_multicore_copy_gives_the_reference_traces_and_report():
+    """One co-run mix at a fixed seed: the per-core traces and the
+    `ContentionReport` of the shared fabric."""
+    ref_progs = ref_workloads.get_mix("mix_stream_chase", 1500, seed=3)
+    port_progs = port_workloads.get_mix("mix_stream_chase", 1500, seed=3)
+    ref_traces, ref_report = ref_multicore.contention_report(ref_progs, mix="mix_stream_chase")
+    port_traces, port_report = port_multicore.contention_report(port_progs, mix="mix_stream_chase")
+    assert port_report.to_dict() == ref_report.to_dict()
+    assert len(port_traces) == len(ref_traces) == 2
+    for rt, pt in zip(ref_traces, port_traces):
+        for f in dataclasses.fields(rt):
+            a, b = getattr(rt, f.name), getattr(pt, f.name)
+            if isinstance(a, np.ndarray):
+                np.testing.assert_array_equal(a, b, err_msg=f.name)
+                assert a.dtype == b.dtype, f.name
+            else:
+                assert a == b, f.name
+    assert any(c["slowdown"] > 1.0 for c in port_report.cores)  # the fabric was shared
 
 
 def test_cuda_without_a_gpu_raises():

@@ -17,6 +17,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs on six xdist workers on eight cores: one intra-op thread a
+# process keeps torch from oversubscribing the cores the JAX tests time on
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
