@@ -36,7 +36,16 @@ launches each makes:
 - the training path: a teacher-forced dataset built on the card from the
   pack's DES traces (bit for bit the CPU's), c3 trained there for two
   epochs (its first steps' losses held to the CPU's), its prediction
-  errors, and the trained artifact simulated through K1 and plain.
+  errors, and the trained artifact simulated through K1 and plain;
+- the serving tier: the pack through ``SimNet(artifact, use_kernel=True,
+  background=True)`` → ``SimServe`` → the engine's chunk graph → K1, its
+  totals the engine's own bit for bit (K1's launches counted across the
+  served call), two resident models of one kind on one graph (its weight
+  slots refilled at each turn), ``SimServeHTTP`` with client threads
+  posting wire arrays, and ``python -m repro_torch`` as child processes:
+  ``simulate --use-kernel``, ``serve --jobs``, a 2-replica ``fleet`` and
+  ``chaos --quick``, each held to the in-process totals; then a one-shot
+  ``simulate`` timed at chunk 256, 512 and 1024.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -81,6 +90,19 @@ TRAIN_EPOCHS, TRAIN_BATCH, TRAIN_LR = 2, 512, 1e-3
 # division by sqrt(v) lets that grow step by step, so only the first 20
 # steps are held, at 1e-4
 TRAIN_CMP_STEPS, TRAIN_RTOL = 20, 1e-4
+# phase [11]: the serving tier. HTTP clients; the CLI children's pack
+# (two DES traces, 16 lanes: 256 steps, one chunk); fleet replicas; the
+# one-shot simulate's lanes (16 lanes of a 32768-instruction workload:
+# 2048 steps, so each chunk cap below is the chunk it runs)
+HTTP_CLIENTS = 4
+CLI_BENCHES, CLI_N, CLI_LANES = ("sim_loop", "mlb_mixed"), 4096, 16
+FLEET_REPLICAS = 2
+# the chaos drill's watchdog (its CLI default is 10 s): a dispatch that
+# builds a CUDA graph must finish inside it, and builds took up to ~10 s
+# on the card when its host was busy, while the injected hang it must
+# catch lasts 600 s
+CHAOS_WATCHDOG_S = 30
+ONESHOT_LANES, CHUNK_CAPS = 16, (256, 512, 1024)
 LM_ARCH = "gemma3-4b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 8, 2048, 64  # requests, prompt tokens, decode steps
 LM_CACHE = 2112  # prompt + steps
@@ -1040,6 +1062,240 @@ def training_phase(torch, dev, traces, arrays):
             f"({tr.total_cycles} cycles), {100 * (c - tr.cpi) / tr.cpi:+.1f}%")
 
 
+def run_cli(args, timeout):
+    """``python -m repro_torch ARGS`` as a child process on the card, in a
+    session of its own (a fleet's replicas are its children: a timeout
+    kills the whole group). Returns (exit code, parsed JSON of its
+    standard output or None, seconds, stderr tail)."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch", *map(str, args)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"python -m repro_torch {' '.join(map(str, args))} ran past {timeout} s")
+    secs = time.perf_counter() - t0
+    try:
+        doc = json.loads(out)
+    except json.JSONDecodeError:
+        doc = None
+    return proc.returncode, doc, secs, err[-3000:]
+
+
+def pcts(samples):
+    import numpy as np
+
+    return f"p50 {np.percentile(samples, 50):.1f} ms, p99 {np.percentile(samples, 99):.1f} ms"
+
+
+def hist_pcts(snap):
+    """p50/p99 of a telemetry histogram snapshot (bucket-edge estimates)."""
+    return f"p50 {snap['p50']:.1f} ms, p99 {snap['p99']:.1f} ms (n={snap['count']})"
+
+
+def serving_phase(torch, dev, pcfg, params, arrays):
+    """The serving tier on the card: the `SimNet` session through its
+    `SimServe` (K1 on the served path), two resident models of one kind on
+    one graph, the HTTP tier, the CLI's ``simulate`` and ``serve --jobs``,
+    a 2-replica fleet and the chaos drill as child processes, and a
+    one-shot ``simulate`` at three chunk sizes."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.checkpoint import PredictorArtifact
+    from repro_torch.core import api
+    from repro_torch.core.predictor import init_predictor
+    from repro_torch.core.session import SimNet
+    from repro_torch.core.simulator import SimConfig, max_packed_steps
+    from repro_torch.kernels import ops
+    from repro_torch.serving.compile_cache import CompileCache, chunk_bucket
+    from repro_torch.serving.http import SimServeHTTP, http_request, wait_job
+    from repro_torch.serving.service import SimServe
+    from repro_torch.serving.simnet_engine import SimNetEngine
+
+    log(f"[11] serving tier on the card: {len(arrays)} workloads x {PRED_LANES} lanes x "
+        f"{PRED_STEPS} steps, c3 at full width through an artifact (seed {SEED}), ring, f32")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        art_dir = Path(tmp) / "c3"
+        PredictorArtifact(params, pcfg, SimConfig(ctx_len=pcfg.ctx_len), {"seed": SEED}).save(art_dir)
+        art = PredictorArtifact.load(art_dir, device=dev)
+        lanes = [PRED_LANES] * len(arrays)
+        chunk = chunk_bucket(max_packed_steps(arrays, lanes), 1024)  # what the service picks
+        direct = SimNetEngine(art.params, art.pcfg, art.sim_cfg, use_kernel=True, device=dev
+                              ).simulate_many(arrays, n_lanes=PRED_LANES, chunk=chunk)
+
+        # -- the session through its service's drain loop, a cold cache
+        sn = SimNet(art, use_kernel=True, background=True, cache=CompileCache(), device=dev)
+        sn.service.max_wait_ms = 50.0  # a window that every submit of the call makes
+        ops.reset_launches()
+        with sn:
+            res = sn.simulate_many(arrays, n_lanes=PRED_LANES)
+            st = sn.stats()
+        served = dict(ops.launches)
+        got = np.asarray([w.total_cycles for w in res])
+        log(f"  SimNet(background=True).simulate_many: throughput_ips={res.throughput_ips:.1f} "
+            f"seconds={res.seconds:.4f} first_call_seconds={res.first_call_seconds:.3f} "
+            f"cache={res.cache}; launches {served}")
+        log(f"  service: jobs_per_batch={st['jobs_per_batch']:.1f} batches={st['batches']} "
+            f"queue_wait_ms {hist_pcts(st['telemetry']['queue_wait_ms'])}, service_ms "
+            f"{hist_pcts(st['telemetry']['service_ms'])}")
+        log(f"  engine direct (chunk {chunk}): throughput_ips={direct['throughput_ips']:.1f} "
+            f"seconds={direct['seconds']:.4f}")
+        check(np.array_equal(got, direct["workload_cycles"]),
+              "served totals equal the engine's direct simulate_many bit for bit")
+        check(served["fused_step"] == direct["n_steps"] > 0 and served["cnn_trunk"] == 0
+              and st["loop_errors"] == 0,
+              f"the served path launched K1 once a step ({served['fused_step']} fused_step launches)")
+
+        # -- two resident models of one kind alternate on one chunk graph
+        other = init_predictor(torch.Generator().manual_seed(SEED + 1), pcfg, dev)
+        two = SimServe(use_kernel=True, device=dev)
+        two.register("a", art)
+        two.register("b", params=other, pcfg=pcfg, sim_cfg=art.sim_cfg)
+        engines = {"a": SimNetEngine(art.params, pcfg, art.sim_cfg, use_kernel=True, device=dev),
+                   "b": SimNetEngine(other, pcfg, art.sim_cfg, use_kernel=True, device=dev)}
+        order, handles = [], []
+        for i in range(3):  # each round: one job a model, drained a then b
+            handles.append({m: two.submit(arrays[i], m, n_lanes=PRED_LANES) for m in "ab"})
+            order += [r.model_id for r in two.drain()]
+        prog = two.registry.get("a").executable(PRED_LANES, chunk)
+        refills = prog.refills
+        log(f"  two residents of one kind, {len(order)} batches {order}: weight-slot refills of "
+            f"their one chunk graph {refills} (the first binding included)")
+        check(order == ["a", "b"] * 3 and refills == len(order)
+              and prog is two.registry.get("b").executable(PRED_LANES, chunk),
+              "two models of one kind share one graph, which refills its weight slots at every turn")
+        same = all(h.result().total_cycles == float(engines[m].simulate_many(
+            [arrays[i]], n_lanes=PRED_LANES, chunk=chunk)["workload_cycles"][0])
+            for i, hs in enumerate(handles) for m, h in hs.items())
+        check(same, "each of their jobs equals its own engine's direct total")
+
+        # -- the HTTP tier: wire arrays from client threads. Each job rides
+        # a batch of its own (max_batch_lanes = its lanes), in-process as
+        # over the wire, so both run the same programs at the same shapes
+        def http_service():
+            serve = SimServe(max_batch_lanes=PRED_LANES, use_kernel=True, device=dev)
+            serve.register("c3", art)
+            return serve
+
+        inproc = http_service()
+        hs = [inproc.submit(a, "c3", n_lanes=PRED_LANES) for a in arrays]
+        inproc.drain()
+        want = [h.result().total_cycles for h in hs]
+        t0 = time.perf_counter()
+        wires = [{k: np.asarray(v).tolist() for k, v in a.items()} for a in arrays]
+        log(f"  wire arrays of {len(wires)} workloads made in {time.perf_counter() - t0:.2f} s")
+        wired, lat, errors = {}, {}, []
+        serve = http_service()
+        with SimServeHTTP(serve) as front:
+            def client(c):
+                try:
+                    for i in range(c, len(wires), HTTP_CLIENTS):
+                        t = time.perf_counter()
+                        code, body = http_request(f"{front.url}/v1/jobs", "POST", {
+                            "trace": wires[i], "model": "c3", "lanes": PRED_LANES, "id": f"w{i}"},
+                            timeout=300)
+                        if code != 202:
+                            raise RuntimeError(f"POST w{i}: {code} {body}")
+                        done = wait_job(front.url, body["job_id"], timeout=300)
+                        lat[i] = (time.perf_counter() - t) * 1e3
+                        wired[i] = done
+                except Exception as e:  # noqa: BLE001 - raised below, on the main thread
+                    errors.append(e)
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            _, hst = http_request(f"{front.url}/v1/stats")
+        serve.stop()
+        if errors or any(t.is_alive() for t in threads):
+            raise RuntimeError(f"HTTP clients failed: {errors}")
+        log(f"  HTTP: {len(wires)} requests from {HTTP_CLIENTS} client threads in {wall:.2f} s = "
+            f"{len(wires) / wall:.2f} requests/s; request latency (post to result) "
+            f"{pcts(list(lat.values()))}; service_ms {hist_pcts(hst['telemetry']['service_ms'])}, "
+            f"jobs_per_batch {hst['jobs_per_batch']:.1f}")
+        check(all(wired[i]["status"] == "done" for i in range(len(wires)))
+              and [wired[i]["result"]["total_cycles"] for i in range(len(wires))] == want,
+              "wire totals equal the in-process submits' bit for bit")
+        log(f"  (a job alone in a {PRED_LANES}-lane batch vs all {len(arrays)} in one "
+            f"{direct['n_lanes']}-lane batch: equal totals for {sum(a == b for a, b in zip(want, got))} "
+            f"of {len(want)} workloads; not a gate)")
+
+        # -- the CLI as child processes: simulate --use-kernel, serve --jobs
+        tr_dir = Path(tmp) / "traces"
+        cli_traces = api.generate_traces(CLI_BENCHES, CLI_N, cache_dir=str(tr_dir))
+        want = SimNet(art, use_kernel=True, device=dev).simulate_many(cli_traces, n_lanes=CLI_LANES)
+        rc, out, secs, err = run_cli(
+            ["simulate", "--artifact", art_dir, "--use-kernel", "--bench", *CLI_BENCHES,
+             "-n", CLI_N, "--lanes", CLI_LANES, "--cache-dir", tr_dir], timeout=300)
+        check(rc == 0 and out is not None, f"python -m repro_torch simulate --use-kernel exits 0 "
+              f"in {secs:.1f} s {err if rc else ''}")
+        log(f"  CLI simulate: throughput_ips={out['result']['throughput_ips']:.1f} "
+            f"first_call_seconds={out['result']['first_call_seconds']:.3f} cache {out['result']['cache']}")
+        check([w["total_cycles"] for w in out["result"]["workloads"]] == [w.total_cycles for w in want],
+              f"CLI simulate totals equal in-process {[w.total_cycles for w in want]}")
+        jobs = [{"id": f"{m}-{b}", "bench": b, "n": CLI_N, "lanes": CLI_LANES,
+                 **({"model": "c3"} if m == "c3" else {})} for m in ("c3", "tf") for b in CLI_BENCHES]
+        jobs_file = Path(tmp) / "jobs.json"
+        jobs_file.write_text(json.dumps({"models": {"c3": str(art_dir)}, "jobs": jobs}))
+        sync = SimServe(device=dev)
+        sync.register("c3", art_dir)
+        names = dict(zip(CLI_BENCHES, cli_traces))
+        hs = [sync.submit(names[j["bench"]], j.get("model"), n_lanes=CLI_LANES, name=j["id"])
+              for j in jobs]
+        sync.drain()
+        want = [(j["id"], h.result().total_cycles) for j, h in zip(jobs, hs)]
+        rc, out, secs, err = run_cli(["serve", "--jobs", jobs_file, "--cache-dir", tr_dir], timeout=300)
+        check(rc == 0 and out is not None, f"python -m repro_torch serve --jobs exits 0 in "
+              f"{secs:.1f} s {err if rc else ''}")
+        check([(j["id"], j["result"]["total_cycles"]) for j in out["jobs"]] == want,
+              f"CLI serve --jobs totals equal in-process {want}")
+        log(f"  CLI serve --jobs: {out['stats']['batches']} batches, cache "
+            f"{ {k: out['stats']['cache'][k] for k in ('hits', 'misses', 'compile_seconds')} }")
+
+        # -- a 2-replica fleet on the one card, then the chaos drill
+        rc, out, secs, err = run_cli(["fleet", "--replicas", FLEET_REPLICAS, "--jobs", jobs_file,
+                                      "--cache-dir", tr_dir], timeout=600)
+        check(rc == 0 and out is not None, f"python -m repro_torch fleet --replicas {FLEET_REPLICAS} "
+              f"exits 0 in {secs:.1f} s {err if rc else ''}")
+        log(f"  fleet: healthz {out['healthz']['status']}, {out['healthz']['healthy_replicas']} healthy "
+            f"replicas, jobs on {[j['replica'] for j in out['jobs']]}, router "
+            f"{ {k: out['stats']['router'][k] for k in ('jobs_routed', 'failovers', 'ejections')} }")
+        check([(j["id"], j["result"]["total_cycles"]) for j in out["jobs"]] == want,
+              "fleet totals equal the synchronous run's")
+        rc, out, secs, err = run_cli(["chaos", "--quick", "--batch-timeout-s", CHAOS_WATCHDOG_S],
+                                     timeout=600)
+        single = (out or {}).get("single", {})
+        log(f"  chaos --quick: exit {rc} in {secs:.1f} s; checks {single.get('checks')}; counters "
+            f"{single.get('counters')}")
+        check(rc == 0 and out["ok"] and all(single["checks"].values()),
+              f"python -m repro_torch chaos --quick passes every check {err if rc else ''}")
+
+    # -- a one-shot simulate (cold cache) at three chunk caps
+    firsts = {}
+    for c in CHUNK_CAPS:
+        one = SimNet(art, use_kernel=True, cache=CompileCache(), device=dev)
+        r = one.simulate(arrays[0], n_lanes=ONESHOT_LANES, chunk=c)
+        warm = one.simulate(arrays[0], n_lanes=ONESHOT_LANES, chunk=c)
+        firsts[c] = r.total_cycles
+        log(f"  one-shot simulate, {ONESHOT_LANES} lanes x {len(arrays[0]['feat']) // ONESHOT_LANES} "
+            f"steps, chunk {c}: first_call_seconds {r.first_call_seconds:.3f} (build "
+            f"{r.cache['compile_seconds']:.3f} s), throughput_ips {r.throughput_ips:.1f}; warm call "
+            f"{warm.first_call_seconds:.3f} s, throughput_ips {warm.throughput_ips:.1f}")
+    check(len(set(firsts.values())) == 1, f"the same totals at every chunk {firsts}")
+
 def ptxas_entries(log):
     """Per kernel entry in nvcc's -Xptxas -v output: registers, static shared
     memory, stack frame and spills (stores, loads) in bytes."""
@@ -1125,6 +1381,7 @@ def main():
     del lm
     kinds_phase(torch, dev, arrays)
     training_phase(torch, dev, traces, arrays)
+    serving_phase(torch, dev, pcfg, params, arrays)
 
     for r in rows:
         r["launches"] = launches[r["name"]]

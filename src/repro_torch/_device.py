@@ -6,6 +6,8 @@ from typing import Union
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+# what ``--device`` of the CLI, and so a fleet's replicas, take
+DEVICE_KINDS = ("cuda", "cpu")
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

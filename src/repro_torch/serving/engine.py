@@ -23,7 +23,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.serving.graphs import CapturedGraph, ParamsBinding
+from repro_torch.serving.graphs import CAPTURE_LOCK, CapturedGraph, ParamsBinding
 
 
 @dataclasses.dataclass
@@ -57,7 +57,8 @@ def copy_state(state):
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with CAPTURE_LOCK:  # a device-wide sync must not meet another thread's capture
+            torch.cuda.synchronize(device)
 
 
 class StepGraph:

@@ -22,6 +22,7 @@ raises.
 """
 from __future__ import annotations
 
+import threading
 import time
 import weakref
 
@@ -31,18 +32,34 @@ from repro_torch._tree import tree_leaves
 from repro_torch.kernels import ops
 
 
+# One build at a time in a process. Entering `torch.cuda.graph`
+# synchronises the whole device and empties the allocator's cache, which
+# CUDA forbids while any stream of the context is capturing: a second
+# thread's build would invalidate the first one's capture. A device-wide
+# synchronise elsewhere (`serving.engine`) takes this lock for the same
+# reason.
+CAPTURE_LOCK = threading.Lock()
+
+
 class CapturedGraph:
     """One CUDA graph of ``body`` on ``device``.
 
     ``body`` runs once eagerly on a side stream first: a kernel's first
     call loads its library and sets its shared-memory limit, neither of
-    which may happen inside a capture. The capture uses the
-    ``thread_local`` error mode, so another thread's CUDA work during the
-    capture does not invalidate it. ``capture_seconds`` and
+    which may happen inside a capture. The capture runs on that same side
+    stream, one of its own (not PyTorch's shared default capture stream),
+    in the ``thread_local`` error mode, so another thread's kernels and
+    stream-ordered copies during a capture do not invalidate it. Builds
+    take turns on `CAPTURE_LOCK` (two threads' builds at once broke each
+    other's capture). ``capture_seconds`` and
     ``instantiate_seconds`` time the two halves of the build on the host.
     """
 
     def __init__(self, body, device: torch.device):
+        with CAPTURE_LOCK:
+            self._build(body, device)
+
+    def _build(self, body, device: torch.device) -> None:
         before = dict(ops.launches)
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -54,7 +71,7 @@ class CapturedGraph:
             # keep_graph: instantiate separately, so that its time is seen
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             t0 = time.perf_counter()
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
                 start = dict(ops.launches)
                 body()
                 captured = {k: ops.launches[k] - start[k] for k in start}

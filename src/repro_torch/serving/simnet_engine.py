@@ -150,7 +150,12 @@ class ChunkGraph:
 
     A graph entry is not reentrant: ``run`` holds the entry's lock from
     the first copy in to the read-out, so passes from several threads (a
-    service's drain thread beside a caller) take turns.
+    service's drain thread beside a caller, or beside a dispatch its
+    watchdog abandoned) take turns. The build and every pass run with the
+    entry's device current, whichever thread calls. ``refills`` counts
+    the passes that copied weights into the slots: the first pass, and
+    each pass whose weights are not the ones the slots hold (two resident
+    models of one kind alternating on the graph refill at every turn).
     """
 
     def __init__(self, key: ExecutableKey, device: torch.device, params=None):
@@ -167,6 +172,7 @@ class ChunkGraph:
         # whenever the entry last ran other weights
         self.params = None if params is None else tree_map(torch.clone, params)
         self._bound = None  # ParamsBinding of the weights the slots hold
+        self.refills = 0  # guarded-by: lock
 
         def body():
             out = run_chunk(key.predictor, cfg, key.use_kernel, self.params, self.state,
@@ -175,15 +181,17 @@ class ChunkGraph:
                 if new is not buf:  # the ring step writes the wide planes in place
                     buf.copy_(new)
 
-        self.graph = CapturedGraph(body, device)
+        with torch.cuda.device(device):
+            self.graph = CapturedGraph(body, device)
 
     def run(self, params, chunks, retire_width, lane_ctx, finish):
         """One pass: zero the state, bind the weights, copy each chunk in
         and replay; returns ``finish(final state)``, read under the lock."""
-        with self.lock:
+        with self.lock, torch.cuda.device(self.device):
             if self.params is not None and not (self._bound and self._bound.unchanged(params)):
                 _copy_tree(self.params, params)
                 self._bound = ParamsBinding(params)
+                self.refills += 1
             for buf in self.state:
                 buf.zero_()
             self.retire_width.copy_(retire_width)

@@ -80,10 +80,10 @@ def _engine(route, device, cache, seed=0):
                         use_kernel=route != "plain", device=device, cache=cache)
 
 
-def _eager_totals(eng, arrs):
+def _eager_totals(eng, arrs, lanes=LANES):
     """The engine's pass without its program: `_run_chunk` eagerly over
     the same pack, on the engine's device."""
-    packed = pack_workloads(arrs, LANES, eng.sim_cfg, pad_to=CHUNK)
+    packed = pack_workloads(arrs, lanes, eng.sim_cfg, pad_to=CHUNK)
     packed = pad_packed_lanes(packed, lane_bucket(packed.n_lanes))
     dev = eng.device
     rw = torch.from_numpy(packed.retire_width).to(dev)
@@ -211,6 +211,43 @@ def test_graph_passes_from_many_threads_take_turns(cuda, arrs):
     assert len(results) == 24 and cache.stats()["misses"] == 1
     for i, cycles in results:
         np.testing.assert_array_equal(cycles, want[i])
+
+
+@pytest.mark.cuda
+def test_graphs_built_on_several_threads_at_once(cuda, arrs):
+    """Three threads each build the graph of another lane bucket at the
+    same moment while a fourth runs passes of a graph built before (a
+    service's drain thread beside another's, or beside a dispatch its
+    watchdog abandoned): the builds take turns, the passes go on beside
+    them, and every pass equals the eager totals at its shape."""
+    cache = CompileCache()
+    eng = _engine("ring+fused_step", cuda, cache)
+    eng.simulate_many(arrs, n_lanes=8, chunk=CHUNK)  # resident before the threads start
+    jobs = {1: 1, 2: 1, 4: 1, 8: 6}  # lanes a workload (buckets 2, 4, 8, 16): passes
+    gate = threading.Barrier(len(jobs))
+    got, errors = {n: [] for n in jobs}, []
+
+    def work(n):
+        try:
+            gate.wait(60)
+            for _ in range(jobs[n]):
+                got[n].append(eng.simulate_many(arrs, n_lanes=n, chunk=CHUNK)["workload_cycles"])
+        except BaseException as e:  # recorded and asserted below
+            errors.append(e)
+            raise
+
+    threads = [threading.Thread(target=work, args=(n,)) for n in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert cache.stats()["misses"] == len(jobs)
+    for n, runs in got.items():
+        assert len(runs) == jobs[n]
+        want = _eager_totals(eng, arrs, n)[0]
+        for cycles in runs:
+            np.testing.assert_array_equal(cycles, want)
 
 
 def _decode_inputs(device):

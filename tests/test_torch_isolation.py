@@ -4,6 +4,7 @@ traces and fault schedules, and no silent CPU fallback when CUDA is asked
 for."""
 import ast
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -66,6 +67,11 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "import repro_torch.serving.graphs, repro_torch.checkpoint\n"
         "import repro_torch.core.dataset, repro_torch.core.session, repro_torch.training.optimizer\n"
         "import repro_torch.des.history, repro_torch.des.multicore\n"
+        "import repro_torch.core.results, repro_torch.core.api, repro_torch.cli\n"
+        "import repro_torch.serving.backoff, repro_torch.serving.telemetry\n"
+        "import repro_torch.serving.registry, repro_torch.serving.service\n"
+        "import repro_torch.serving.http, repro_torch.serving.router\n"
+        "import repro_torch.serving.fleet, repro_torch.serving.chaos, repro_torch.analysis\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -194,3 +200,73 @@ def test_same_fault_plan_gives_the_same_schedule_in_both_packages(spec):
     assert port == ref
     assert any(d[2] != "pass" for d in ref[1])  # the plan did fire
     assert port_faults.FAULT_SITES == ref_faults.FAULT_SITES
+
+
+# the framework-free modules the port keeps as copies: (reference, port)
+COPIES = [("core/results.py", "core/results.py"), ("serving/backoff.py", "serving/backoff.py"),
+          ("serving/telemetry.py", "serving/telemetry.py")] + [
+    (f"analysis/{p.name}", f"analysis/{p.name}")
+    for p in sorted((REPO / "src" / "repro" / "analysis").glob("*.py"))]
+
+
+def _without_imports(text: str):
+    """The file's lines, its import statements left out (they name the
+    package)."""
+    tree = ast.parse(text)
+    skip = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            skip.update(range(node.lineno, node.end_lineno + 1))
+    return [ln for i, ln in enumerate(text.splitlines(), 1) if i not in skip]
+
+
+@pytest.mark.parametrize("ref,port", COPIES, ids=[p for _, p in COPIES])
+def test_copy_is_the_reference_apart_from_imports(ref, port):
+    """A stdlib-only module is copied, not imported: its text is the
+    reference's, import lines aside (the analysis package's relative
+    imports make those copies byte for byte)."""
+    want = (REPO / "src" / "repro" / ref).read_text()
+    got = (REPO / "src" / "repro_torch" / port).read_text()
+    assert _without_imports(got) == _without_imports(want)
+    assert len(got.splitlines()) == len(want.splitlines())
+    assert len(COPIES) == 9
+
+
+def _lint(package, paths, cwd):
+    code = (f"import json, sys\nfrom pathlib import Path\nfrom {package} import analysis\n"
+            "findings, modules = analysis.run_lint([Path(p) for p in sys.argv[1:]])\n"
+            "print(json.dumps(sorted(f'{f.rule}|{f.path}|{f.line}|{f.message}' for f in findings)))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code, *map(str, paths)], env=env, cwd=cwd,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout)
+
+
+def test_both_linters_give_the_same_findings(tmp_path):
+    """`python -m repro_torch lint` runs the port's copy of the analysis
+    package: over ``src/`` (both packages, clean) and over a file that
+    breaks the lock, hygiene and determinism rules, its findings are the
+    reference's."""
+    bad = tmp_path / "repro" / "des" / "bad.py"
+    bad.parent.mkdir(parents=True)
+    bad.write_text(
+        "import random\nimport threading\nimport time\n\n\n"
+        "class Q:\n"
+        "    def __init__(self):\n"
+        "        self._lock = threading.Lock()\n"
+        "        self._items = []  # guarded-by: _lock\n\n"
+        "    def push(self, x):\n"
+        "        self._items.append(x)\n\n"
+        "    def pick(self):\n"
+        "        try:\n"
+        "            return random.random() + time.time()\n"
+        "        except Exception:\n"
+        "            return 0.0\n")
+    ref_src, port_src = _lint("repro", ["src"], REPO), _lint("repro_torch", ["src"], REPO)
+    assert port_src == ref_src == []
+    rel = bad.relative_to(tmp_path)
+    ref_bad, port_bad = _lint("repro", [rel], tmp_path), _lint("repro_torch", [rel], tmp_path)
+    assert port_bad == ref_bad
+    assert {f.split("|")[0] for f in ref_bad} == {
+        "lock-guarded-field", "hygiene-broad-except", "det-unseeded-random", "det-wall-clock"}
