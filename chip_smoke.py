@@ -45,7 +45,16 @@ launches each makes:
   posting wire arrays, and ``python -m repro_torch`` as child processes:
   ``simulate --use-kernel``, ``serve --jobs``, a 2-replica ``fleet`` and
   ``chaos --quick``, each held to the in-process totals; then a one-shot
-  ``simulate`` timed at chunk 256, 512 and 1024.
+  ``simulate`` timed at chunk 256, 512 and 1024;
+- the other LM families at full width in bf16, one at a time (phase
+  [12]): mixtral-8x7b (cut to 16 of 32 layers; its SWA ring cache and MoE
+  dispatch), qwen2-vl-72b (cut to 20 of 80; M-RoPE, stub image patches),
+  recurrentgemma-2b, whisper-large-v3 (1500 stub frames) and rwkv6-1.6b
+  whole, each served as gemma3-4b is (K4 in every attention layer through
+  the step graph, counted and read from the profiler, graph = eager
+  tokens, every K4 call of the first step held to its plain version, the
+  first step's logits on both paths), then each non-dense family at
+  reduced width in f32 on the card and the CPU (kernel = plain = CPU).
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -118,10 +127,30 @@ EXACT_TOL = 1e-4  # f32 logits, CUDA vs CPU
 # Full width in bf16, kernel vs plain path, first-step logits, relative to
 # max |logit|. The plain path rounds q.k and the probabilities to bf16 (8
 # significant bits) where the kernel keeps f32, and the difference passes
-# through 34 layers: 1.4% of max |logit| measured on the H100 (PERF.md);
+# through every layer: 1.4% of max |logit| measured on the H100 for
+# gemma3-4b's 34 layers, 1.1-3.1% for the families of phase [12] (PERF.md);
 # 5% leaves room for other weights and prompts. The sharp test of
 # the kernel path is the f32 one at reduced depth (EXACT_TOL).
 FULL_TOL = 0.05
+# phase [12]: the other LM families at full width, bf16, LM_BATCH requests
+# and LM_STEPS greedy steps. (arch, layers kept or None for all, prompt
+# tokens). Depth is cut only where one card's 80 GB forces it: weights,
+# KV cache and prefill activations (the plain attention's f32 logits over
+# 2048 x 2048 positions are 4-9 GB a layer while they live), with room to
+# spare: mixtral 16 of 32 layers (~2.9 GB a layer in bf16), qwen2-vl 20 of
+# 80 (~1.76 GB a layer, plus ~5 GB of embedding tables). whisper takes
+# 1500 stub frames and a 64-token decoder prompt.
+FAMILY_RUNS = (("mixtral-8x7b", 16, 2048), ("qwen2-vl-72b", 20, 2048),
+               ("recurrentgemma-2b", None, 2048), ("whisper-large-v3", None, 64),
+               ("rwkv6-1.6b", None, 2048))
+VLM_PATCHES = 256  # qwen2-vl: stub image patches in the leading positions
+# phase [12]'s exactness, reduced f32 on the card and the CPU: phi3.5-moe
+# (mixtral's code without the SWA ring) besides the five; 32-token prompts
+# (EXACT_BATCH x 32 tokens: two MoE groups of 64) and 16 steps wrap
+# mixtral's ring of 32 and the hybrid's prompt-sized one
+FAMILY_EXACT_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-72b",
+                      "recurrentgemma-2b", "whisper-large-v3", "rwkv6-1.6b")
+FAMILY_EXACT_PROMPT = 32
 
 
 def log(*a):
@@ -923,6 +952,296 @@ def decode_exactness_phase(torch, dev, lm):
           f"{FULL_TOL} x max |logit| = {FULL_TOL * scale:.4f}")
 
 
+def n_attention_layers(cfg):
+    """Layers whose decode runs K4: every layer of the attention families
+    (whisper: its decoder's self-attention), the hybrid's attention layers,
+    none of rwkv's."""
+    return sum(1 for i in range(cfg.n_layers) if cfg.is_attn_layer(i))
+
+
+def family_batch(torch, cfg, device, n, prompt, seed):
+    """Prompts from a numpy seed; whisper's stub frames and qwen2-vl's stub
+    image patches from a CPU generator (the same inputs on every device)."""
+    import numpy as np
+
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab, (n, prompt)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(device)}
+    g = torch.Generator().manual_seed(seed)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((n, cfg.enc_seq, cfg.d_model), generator=g).to(device)
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = torch.randn((n, min(VLM_PATCHES, prompt // 2), cfg.frontend_dim),
+                                       generator=g).to(device)
+    return batch
+
+
+def family_phase(torch, dev, arch, layers, prompt):
+    """One LM family's serving path at full width in bf16: random weights
+    from a seed, prefill of LM_BATCH prompts, re-homing as serve_lm.py
+    does, then LM_STEPS greedy steps through DecodeEngine's step graph
+    with K4 in every attention layer; beside it the same steps eager, the
+    first step's logits on the kernel and plain paths, and a profiled
+    window of replays. Returns the family's numbers."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import DecodeEngine, copy_state, lm_decoder
+
+    whole = get_config(arch)
+    cfg = whole if layers is None else dataclasses.replace(whole, n_layers=layers)
+    n_attn = n_attention_layers(cfg)
+    cut = ("no cut (every layer)" if layers is None else
+           f"CUT: {layers} of {whole.n_layers} layers, what one card's 80 GB holds with the "
+           "prefill's activations")
+    enc = f", encoder {cfg.n_enc_layers} layers over {cfg.enc_seq} stub frames" if cfg.is_encdec else ""
+    log(f"[12] {arch} at full width ({cfg.family}: d_model {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} KV, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}{enc}), "
+        f"{cfg.dtype}; {cut}; {n_attn} attention layers run K4")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    leaves = list(tensors(params))
+    log(f"  random weights (torch.Generator seed {SEED}) in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(t.numel() for t in leaves) / 1e9:.3f} B parameters, "
+        f"{sum(t.nbytes for t in leaves) / 1e9:.2f} GB on the card")
+    batch = family_batch(torch, cfg, dev, LM_BATCH, prompt, SEED)
+    extra = "".join(f", {k} {tuple(v.shape)}" for k, v in batch.items() if k != "tokens")
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    vocab = cfg.padded_vocab if cfg.is_encdec else cfg.vocab
+    check(tuple(logits.shape) == (LM_BATCH, 1, vocab) and bool(torch.isfinite(logits).all()),
+          f"prefill logits finite, shape {tuple(logits.shape)}")
+    prefill_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"  prefill {LM_BATCH} x {prompt} tokens{extra}: {prefill_s:.3f} s "
+        f"({LM_BATCH * prompt / prefill_s:.0f} tokens/s), peak memory {prefill_peak:.2f} GB")
+    dropped = None
+    if cfg.family == "moe":
+        with torch.no_grad():
+            _, aux = model.forward(params, batch, logits_mode="last")
+        dropped = float(aux["moe_dropped"])
+        log(f"  routed (token, choice) pairs of the prefill dropped at capacity factor "
+            f"{cfg.capacity_factor} (groups of {cfg.moe_group_size} tokens): {100 * dropped:.3f}% "
+            f"(a forward pass over the same prompts); load-balancing loss {float(aux['moe_loss']):.4f}")
+        del aux
+    full = model.rehome_state(state, prompt + LM_STEPS)
+    del state
+    first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    del logits
+    engine = DecodeEngine(lm_decoder(model, use_kernel=True), params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    stream, final, tps = engine.generate(full, first, LM_STEPS)
+    counts = dict(ops.launches)
+    want = n_attn * LM_STEPS * 2
+    check(counts["decode_attn"] == want and sum(counts.values()) == want,
+          f"decode_attn launched once per attention layer and step, warm-up and timed pass: "
+          f"{counts} ({n_attn} x {LM_STEPS} x 2 = {want})")
+    check(tuple(stream.shape) == (LM_STEPS, LM_BATCH) and stream.dtype == torch.int32
+          and bool(((stream >= 0) & (stream < cfg.vocab)).all()), "generated tokens in the vocabulary")
+    check(int(final["pos"]) == prompt + LM_STEPS, f"final position {int(final['pos'])}")
+    del final
+    decode_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    graph = engine.step_graph(full, first)
+    nodes = graph_nodes(graph)
+    log(f"  decode {LM_STEPS} steps x {LM_BATCH} requests (timed pass of generate, graph replays): "
+        f"{tps:.1f} tokens/s, {1e3 * LM_BATCH / tps:.3f} ms per decode step, peak memory "
+        f"{decode_peak:.2f} GB; step graph: {build_log(graph)}")
+    log(f"  first request's tokens: {stream[:16, 0].tolist()} ...")
+    eager_stream(torch, model, params, copy_state(full), first, 2, use_kernel=True)  # warm
+    st = copy_state(full)  # copied outside the timed pass, as generate's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager_toks, _ = eager_stream(torch, model, params, st, first, LM_STEPS, use_kernel=True)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    del st
+    log(f"  eager decode, same {LM_STEPS} steps: {LM_STEPS * LM_BATCH / eager_s:.1f} tokens/s, "
+        f"{1e3 * eager_s / LM_STEPS:.3f} ms per decode step; graph "
+        f"{eager_s * tps / (LM_STEPS * LM_BATCH):.2f}x faster")
+    check(torch.equal(eager_toks, stream), f"greedy tokens of the step graph equal the eager steps' "
+          f"({LM_STEPS} x {LM_BATCH})")
+    k4_timed = first_step_gates(torch, model, params, full, first, copy_state)
+    with graph.lock:
+        graph.load(full, first)
+        p = profiled(torch, lambda: graph.decode(LM_PROFILE_STEPS), LM_PROFILE_STEPS)
+    log_profile(f"profile of {LM_PROFILE_STEPS} decode-step graph replays", p, top=6)
+    check(p is not None, "the profiler saw the replays' device time")
+    k4_rows = [r for r in p["rows"] if "decode_split_kernel" in r[2] or "decode_combine_kernel" in r[2]]
+    k4_ms = sum(r[0] for r in k4_rows)
+    k4_per_step = sum(r[1] for r in k4_rows if "decode_split_kernel" in r[2]) / LM_PROFILE_STEPS
+    log(f"    decode_attn (split + combine) {k4_ms:.3f} ms ({100 * k4_ms / p['busy']:.1f}% of device "
+        f"time), {k4_per_step:.1f} split-kernel launches a step")
+    check(k4_per_step == n_attn, f"the profiler counts {k4_per_step:.1f} K4 launches a step, one per "
+          f"attention layer ({n_attn})")
+    out = dict(arch=arch, layers=cfg.n_layers, prefill_s=prefill_s, tps=tps,
+               step_ms=1e3 * LM_BATCH / tps, eager_ms=1e3 * eager_s / LM_STEPS, nodes=nodes,
+               build_s=graph.graph.capture_seconds + graph.graph.instantiate_seconds,
+               busy=p["busy"] / p["wall"], ops=p["ops"], k4_share=k4_ms / p["busy"],
+               k4=counts["decode_attn"], peak=max(prefill_peak, decode_peak), dropped=dropped,
+               k4_timed=k4_timed)
+    del engine, graph, full, params, leaves, batch, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_step_gates(torch, model, params, full, first, copy_state):
+    """The first decode step at full width, K4 path against plain path.
+    (1) Every K4 call of the step against the kernel's plain version on
+    the same inputs (the family's real decode shapes), at DECODE_TOL.
+    (2) The step's logits over the live vocabulary within FULL_TOL x max
+    |logit|. For MoE the plain
+    step takes the K4 step's routing (each layer's top-k choice): the two
+    paths round the attention output to bf16 at other points, a router
+    near-tie can then flip, and a flipped choice moves the token to
+    another expert and every later token of its group to another capacity
+    slot, a jump no tolerance bounds; the unpinned difference and the
+    flipped choices are printed."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.nn import moe as moe_lib
+
+    rtol, atol = DECODE_TOL[model.cfg.dtype]
+    real_k4, real_top_k = ops.decode_attn, moe_lib._top_k
+    seen, picks, timed = [], {"k4": [], "plain": []}, {}
+
+    def held_k4(q, k, v, cache_len, *, window=0):
+        out = real_k4(q, k, v, cache_len, window=window)
+        key = (tuple(q.shape), tuple(k.shape), window)
+        if key not in timed:  # K4 alone at this shape, CUDA events over 20 launches
+            B, H, hd = q.shape
+            live = min(int(cache_len), k.shape[1], window or k.shape[1])
+            n_bytes = 2 * q.nbytes + 2 * B * live * k.shape[2] * hd * k.element_size() + 4
+            timed[key] = (time_ms(torch, lambda: real_k4(q, k, v, cache_len, window=window)),
+                          *bound(n_bytes, 4 * B * H * live * hd), live)
+        want = ref.decode_attn_ref(q, k, v, torch.clamp(cache_len, max=k.shape[1]),
+                                   window=window).to(q.dtype)
+        seen.append((tuple(q.shape), tuple(k.shape), window,
+                     float((out.float() - want.float()).abs().max()),
+                     bool(torch.allclose(out.float(), want.float(), rtol=rtol, atol=atol))))
+        return out
+
+    def recorder(path):
+        def top_k(x, k):
+            vals, idx = real_top_k(x, k)
+            picks[path].append(idx)
+            return vals, idx
+        return top_k
+
+    def replay(x, k):  # the K4 step's choice, with this step's own router logits
+        idx = next(k4_picks)
+        return x.gather(-1, idx), idx
+
+    k4_picks = iter(picks["k4"])
+    try:
+        with torch.no_grad():
+            ops.decode_attn, moe_lib._top_k = held_k4, recorder("k4")
+            a, _ = model.decode_step(params, copy_state(full), first, use_kernel=True)
+            ops.decode_attn, moe_lib._top_k = real_k4, recorder("plain")
+            free, _ = model.decode_step(params, copy_state(full), first, use_kernel=False)
+            moe_lib._top_k = replay
+            b, _ = model.decode_step(params, copy_state(full), first, use_kernel=False)
+    finally:
+        ops.decode_attn, moe_lib._top_k = real_k4, real_top_k
+    if seen:
+        errs = [e for *_, e, _ in seen]
+        shapes = sorted({(qs, ks, w) for qs, ks, w, *_ in seen})
+        check(all(ok for *_, ok in seen), f"each of the first step's {len(seen)} K4 calls matches its "
+              f"plain version on the same inputs (rtol={rtol}, atol={atol}): max_abs_err "
+              f"{max(errs):.3e}; q, k/v, window: {shapes}")
+        for (qs, ks, w), (ms, b_ms, b_by, live) in timed.items():
+            log(f"  decode_attn at q {qs}, k/v {ks}, window {w} ({live} live positions): kernel "
+                f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the bound")
+    # the live vocabulary: whisper's padded rows carry -1e9 on both paths
+    a, b, free = (t[:, :model.cfg.vocab].float() for t in (a, b, free))
+    scale = float(b.abs().max())
+    d0 = float((a - b).abs().max())
+    if picks["k4"]:
+        flipped = sum(int((p.sort(-1).values != q.sort(-1).values).any(-1).sum())
+                      for p, q in zip(picks["k4"], picks["plain"]))
+        total = sum(p.shape[0] * p.shape[1] for p in picks["k4"])
+        log(f"  MoE routing: the plain step's own routing picks other experts for {flipped} of "
+            f"{total} (token, layer) pairs than the K4 step's; unpinned, its logits differ by max "
+            f"|diff| {float((a - free).abs().max()):.4f}")
+    check(d0 <= FULL_TOL * scale, f"first-step logits, K4 path vs plain path"
+          f"{' (routing pinned to the K4 step)' if picks['k4'] else ''}: max |diff| {d0:.4f} within "
+          f"{FULL_TOL} x max |logit| = {FULL_TOL * scale:.4f}")
+    return next(iter(timed.values()), None)
+
+
+def families_exactness_phase(torch, dev):
+    """Every non-dense family at reduced width in f32, as phase [8]: the
+    step graph (card) and eager steps (CPU) give the eager stream; kernel
+    = plain on the card; card = CPU, tokens equal and logits within
+    EXACT_TOL."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import DecodeEngine, copy_state, lm_decoder
+
+    for arch in FAMILY_EXACT_ARCHS:
+        cfg = reduced(get_config(arch), dtype="float32")
+        model = build_model(cfg)
+        seq = FAMILY_EXACT_PROMPT + EXACT_STEPS
+        log(f"[12] exactness, {arch} reduced ({cfg.n_layers} layers, d_model {cfg.d_model}), f32, "
+            f"{EXACT_BATCH} x {FAMILY_EXACT_PROMPT}-token prompts, {EXACT_STEPS} greedy steps")
+        runs = {}
+        with torch.no_grad():
+            for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                # a CPU generator draws the same weights for both devices
+                params = model.init(torch.Generator().manual_seed(SEED), device=device)
+                batch = family_batch(torch, cfg, device, EXACT_BATCH, FAMILY_EXACT_PROMPT, SEED + 1)
+                for use_kernel in (True, False):
+                    logits, st = model.prefill(params, batch)
+                    full = model.rehome_state(st, seq)
+                    first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+                    toks, lgs = eager_stream(torch, model, params, copy_state(full), first,
+                                             EXACT_STEPS, use_kernel)
+                    gen, _, _ = DecodeEngine(lm_decoder(model, use_kernel=use_kernel), params).generate(
+                        full, first, EXACT_STEPS)
+                    check(torch.equal(gen, toks), f"{where} use_kernel={use_kernel}: DecodeEngine's "
+                          f"greedy stream ({'graph replays' if where == 'card' else 'eager'}) equals "
+                          "the eager steps'")
+                    runs[(where, use_kernel)] = (toks.cpu(), lgs.cpu())
+        (tk, lk), (tp, lp) = runs[("card", True)], runs[("card", False)]
+        check(torch.equal(tk, tp), f"CUDA: greedy tokens of the kernel path equal the plain path's "
+              f"(max |logit diff| {float((lk - lp).abs().max()):.3e})")
+        for use_kernel in (True, False):
+            (tc, lc), (tg, lg) = runs[("cpu", use_kernel)], runs[("card", use_kernel)]
+            d = float((lc - lg).abs().max())
+            check(torch.equal(tc, tg) and torch.allclose(lg, lc, rtol=EXACT_TOL, atol=EXACT_TOL),
+                  f"use_kernel={use_kernel}: CUDA tokens equal the CPU's, logits within {EXACT_TOL} "
+                  f"(max |diff| {d:.3e})")
+
+
+def families_phase(torch, dev):
+    """Phase [12]: each other LM family at full width on the card, one at
+    a time (each freed before the next loads), then their exactness at
+    reduced width. Returns K4's launches over the families' runs."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                 check=True, capture_output=True, text=True).stdout.strip()
+    results = [family_phase(torch, dev, arch, layers, prompt) for arch, layers, prompt in FAMILY_RUNS]
+    log(f"[12] summary ({smi}): arch | layers | prefill s | graph tokens/s | graph ms/step | eager "
+        "ms/step | build s | graph nodes | device busy | device ops/step | K4 share | K4 launches | "
+        "K4 ms / bound ms | peak GB | dropped")
+    for r in results:
+        dropped = "-" if r["dropped"] is None else f"{100 * r['dropped']:.3f}%"
+        k4 = "-" if r["k4_timed"] is None else f"{r['k4_timed'][0]:.4f} / {r['k4_timed'][1]:.4f}"
+        log(f"  {r['arch']} | {r['layers']} | {r['prefill_s']:.3f} | {r['tps']:.1f} | {r['step_ms']:.3f} | "
+            f"{r['eager_ms']:.3f} | {r['build_s']:.3f} | {r['nodes']} | {100 * r['busy']:.1f}% | "
+            f"{r['ops']:.1f} | {100 * r['k4_share']:.1f}% | {r['k4']} | {k4} | {r['peak']:.2f} | {dropped}")
+    families_exactness_phase(torch, dev)
+    return sum(r["k4"] for r in results)
+
+
 def kinds_phase(torch, dev, arrays):
     """Every other predictor kind at full width (its default config, ctx
     64), weights from a seed through a predictor artifact, on the pack's
@@ -1382,6 +1701,8 @@ def main():
     kinds_phase(torch, dev, arrays)
     training_phase(torch, dev, traces, arrays)
     serving_phase(torch, dev, pcfg, params, arrays)
+    del params, arrays, traces
+    families_phase(torch, dev)
 
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -1,0 +1,210 @@
+"""RecurrentGemma (Griffin) hybrid: (R, R, A) pattern of RG-LRU recurrent
+blocks and local sliding-window attention, unrolled layers — the port of
+``repro.models.hybrid``.
+
+``params["blocks"]`` is a list with one dict per layer ("attn" or "rec",
+then the MLP). The decode state is the reference's: ``pos`` and one dict
+a layer, ``{"k", "v"}`` (a ring of ``min(T, window)`` positions) for an
+attention layer and ``{"h", "conv"}`` (f32) for a recurrent one. A decode
+step writes every layer's state in place and returns a state that shares
+the tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.models.lm import embed_scale, layer_list, rehome_into, to_storage, tree_from_numpy
+from repro_torch.nn import attention as attn_lib
+from repro_torch.nn import ssm
+from repro_torch.nn.attention import KVCache
+from repro_torch.nn.init import embed_init, split_keys
+from repro_torch.nn.layers import embed as embed_lookup
+from repro_torch.nn.layers import gated_mlp, gated_mlp_params
+from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.transformer import norm_apply, norm_params
+
+
+def _dtype(cfg):
+    return getattr(torch, cfg.dtype)
+
+
+def init_hybrid(generator: torch.Generator, cfg, device: DeviceLike = None) -> dict:
+    dev = resolve_device(device)
+    keys = split_keys(generator, cfg.n_layers + 2)
+    gdev = generator.device
+    p = {"embed": {"w": to_storage(embed_init(keys[0], cfg.vocab, cfg.d_model), cfg, dev)}}
+    blocks = []
+    for i in range(cfg.n_layers):
+        k_mix, k_mlp = split_keys(keys[1 + i], 2)
+        lp = {"ln1": norm_params(cfg, cfg.d_model, gdev)}
+        if cfg.is_attn_layer(i):
+            lp["attn"] = attn_lib.attention_params(
+                k_mix, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        else:
+            lp["rec"] = ssm.recurrent_block_params(
+                k_mix, cfg.d_model, cfg.rnn_width, cfg.rnn_heads, cfg.conv_width)
+        lp["ln2"] = norm_params(cfg, cfg.d_model, gdev)
+        lp["mlp"] = gated_mlp_params(k_mlp, cfg.d_model, cfg.d_ff)
+        blocks.append(to_storage(lp, cfg, dev))
+    p["blocks"] = blocks
+    p["final_norm"] = norm_params(cfg, cfg.d_model, dev)
+    return p
+
+
+def params_from_numpy(tree, cfg, device: DeviceLike = None) -> dict:
+    """The reference's ``init_hybrid`` params (``{"layer_i": ...}``
+    blocks) as the port's, on ``device``, in their storage dtypes."""
+    dev = resolve_device(device)
+    out = {k: tree_from_numpy(v, dev) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [tree_from_numpy(lp, dev) for lp in layer_list(tree["blocks"], cfg.n_layers)]
+    return to_storage(out, cfg)
+
+
+def _embed(params, cfg, tokens, dtype):
+    return embed_lookup(params["embed"], tokens, dtype=dtype) * embed_scale(cfg, dtype)
+
+
+def _logits(params, cfg, x, dtype):
+    x = norm_apply(cfg, params["final_norm"], x, dtype)
+    return x @ params["embed"]["w"].to(dtype).T
+
+
+def _attn_seq(lp, x, positions, *, cfg, dtype):
+    T = x.shape[1]
+    q, k, v = attn_lib.project_qkv(
+        lp["attn"], x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim, dtype=dtype)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    t_ar = torch.arange(T, dtype=torch.int32, device=x.device)
+    mask = attn_lib.make_mask(t_ar, t_ar, cfg.local_window)
+    ctx = attn_lib.mha(q, k, v, mask, dtype=dtype)
+    return attn_lib.attn_out(lp["attn"], ctx, dtype=dtype), (k, v)
+
+
+def _layers_seq(params, cfg, tokens, layer_state=None):
+    """The layer stack over a whole sequence: the final hidden states;
+    ``layer_state(i, kv or RecurrentState)`` receives each layer's decode
+    state where given (prefill)."""
+    dtype = _dtype(cfg)
+    B, T = tokens.shape
+    x = _embed(params, cfg, tokens, dtype)
+    positions = torch.arange(T, dtype=torch.int32, device=tokens.device)[None].expand(B, T)
+    for i, lp in enumerate(params["blocks"]):
+        h = norm_apply(cfg, lp["ln1"], x, dtype)
+        if cfg.is_attn_layer(i):
+            y, kv = _attn_seq(lp, h, positions, cfg=cfg, dtype=dtype)
+        else:
+            y, kv = ssm.recurrent_block(lp["rec"], h, n_heads=cfg.rnn_heads, dtype=dtype,
+                                        with_state=True)
+        if layer_state is not None:
+            layer_state(i, kv)
+        x = x + y
+        h = norm_apply(cfg, lp["ln2"], x, dtype)
+        x = x + gated_mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
+    return x
+
+
+def forward(params, cfg, batch, *, collect_kv=False):
+    """batch: {"tokens": (B, T)}. Returns (logits (B, T, V), aux); aux
+    {"kv": {"layer_i": (k, v)}} of the attention layers with collect_kv."""
+    kvs = {}
+
+    def keep(i, kv):
+        if collect_kv and cfg.is_attn_layer(i):
+            kvs[f"layer_{i}"] = kv
+
+    x = _layers_seq(params, cfg, batch["tokens"], keep)
+    return _logits(params, cfg, x, _dtype(cfg)), ({"kv": kvs} if collect_kv else {})
+
+
+def init_decode_state(cfg, batch_size: int, seq_len: int, device: DeviceLike = None):
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    S = min(seq_len, cfg.local_window) if cfg.local_window else seq_len
+    state = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    for i in range(cfg.n_layers):
+        if cfg.is_attn_layer(i):
+            shape = (batch_size, S, cfg.n_kv_heads, cfg.head_dim)
+            state[f"layer_{i}"] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                                   "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        else:
+            rs = ssm.RecurrentState.zeros(batch_size, cfg.rnn_width, cfg.conv_width, device=dev)
+            state[f"layer_{i}"] = {"h": rs.h, "conv": rs.conv}
+    return state
+
+
+def rehome_state(cfg, state, seq_len: int):
+    """A prefill state in a fresh decode state for ``seq_len`` positions,
+    as ``examples/serve_lm.py`` re-homes it: the nested per-layer dicts are
+    taken as they are, so each attention layer keeps the prefill's ring of
+    ``min(T, window)`` positions (a quirk of the reference: after a prompt
+    shorter than the window, decoding attends over a ring the prompt's
+    length, not the window)."""
+    B = next(iter(state["layer_0"].values())).shape[0]
+    return rehome_into(init_decode_state(cfg, B, seq_len, state["pos"].device), state)
+
+
+def decode_step(params, cfg, state, token, *, use_kernel=False):
+    """One decode step. token: (B,) int32. Returns (logits (B, V), new
+    state); every layer's state is written in place, and the new state
+    shares its per-layer dicts. ``use_kernel`` routes
+    the attention layers through the flash-decode kernel (window 0: the
+    ring is the window)."""
+    dtype = _dtype(cfg)
+    B = token.shape[0]
+    pos = state["pos"]
+    x = _embed(params, cfg, token[:, None], dtype)[:, 0]
+    pos_b = pos.to(torch.int32).expand(B, 1)
+    new_state = {"pos": pos + 1}
+    for i, lp in enumerate(params["blocks"]):
+        ls = new_state[f"layer_{i}"] = state[f"layer_{i}"]
+        h = norm_apply(cfg, lp["ln1"], x[:, None, :], dtype)[:, 0]
+        if cfg.is_attn_layer(i):
+            cache = KVCache(ls["k"], ls["v"])
+            S_cache = cache.k.shape[1]
+            q, k, v = attn_lib.project_qkv(
+                lp["attn"], h[:, None, :], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.head_dim, dtype=dtype)
+            q = apply_rope(q, pos_b, cfg.rope_theta)
+            k = apply_rope(k, pos_b, cfg.rope_theta)
+            idx = torch.remainder(pos, S_cache)  # ring buffer (window-sized cache)
+            cache = attn_lib.cache_update(cache, k[:, 0], v[:, 0], idx)
+            cache_len = torch.clamp(pos + 1, max=S_cache).to(torch.int32)
+            ctx = attn_lib.decode_attention(q[:, 0], cache, cache_len, dtype=dtype,
+                                            use_kernel=use_kernel)
+            y = attn_lib.attn_out(lp["attn"], ctx[:, None], dtype=dtype)[:, 0]
+        else:
+            y, rec = ssm.recurrent_block_step(lp["rec"], h, ssm.RecurrentState(ls["h"], ls["conv"]),
+                                              n_heads=cfg.rnn_heads, dtype=dtype)
+            ls["h"].copy_(rec.h)
+            ls["conv"].copy_(rec.conv)
+        x = x + y
+        h = norm_apply(cfg, lp["ln2"], x[:, None, :], dtype)
+        x = x + gated_mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)[:, 0]
+    return _logits(params, cfg, x, dtype), new_state
+
+
+def prefill(params, cfg, batch):
+    """Prefill: the layer stack over the prompt and the decode state: each
+    attention layer's trailing window of k/v, rolled so that entry t lands
+    at t % S (S = min(T, window)), and each recurrent layer's RG-LRU state
+    and conv lookback (the pre-conv branch inputs). Returns (last-token
+    logits (B, 1, V), state)."""
+    dtype = _dtype(cfg)
+    tokens = batch["tokens"]
+    T = tokens.shape[1]
+    S = min(T, cfg.local_window) if cfg.local_window else T
+    state = {"pos": torch.tensor(T, dtype=torch.int32, device=tokens.device)}
+
+    def keep(i, kv):
+        if cfg.is_attn_layer(i):
+            k, v = kv
+            shift = T % S  # roll so entry t lands at t % S
+            state[f"layer_{i}"] = {"k": torch.roll(k[:, -S:], shift, dims=1),
+                                   "v": torch.roll(v[:, -S:], shift, dims=1)}
+        else:
+            state[f"layer_{i}"] = {"h": kv.h, "conv": kv.conv}
+
+    x = _layers_seq(params, cfg, tokens, keep)
+    return _logits(params, cfg, x[:, -1:, :], dtype), state

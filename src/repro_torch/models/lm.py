@@ -1,22 +1,22 @@
-"""Decoder-only LM, dense family — the port of ``repro.models.lm``.
+"""Decoder-only LM: dense, MoE and VLM (stub frontend) families — the port
+of ``repro.models.lm``.
 
 Parameters are nested dicts of tensors with the reference's names and
 layouts; ``params["blocks"]`` is a list with one dict per layer, and every
-layer loop is a Python loop over it. MoE and VLM (M-RoPE, vision stub)
-raise ``NotImplementedError`` until they are ported (ROADMAP.md Queue 1
-item 11).
+layer loop is a Python loop over it.
 
 **Storage dtypes.** The reference keeps f32 masters and casts each weight
 to ``cfg.dtype`` at every use; at full width that would move the f32
 weights through memory on every decode step. The port casts each tensor
 once, when it is made or loaded (`to_storage`), to the dtype its use site
-casts it to: matrices and the embedding table to ``cfg.dtype``, norm
-scales kept in f32 (``rmsnorm`` computes with ``g`` in f32, and an
-f32 → bf16 → f32 trip would change it). The cast is deterministic, so the
-weights each use sees are bit-identical to the reference's.
+casts it to. The cast is deterministic, so the weights each use sees are
+bit-identical to the reference's. The rule is shared by every family
+(`repro_torch.models.{hybrid,whisper,rwkv}` call it too).
 
 **KV cache.** `decode_step` writes the new token's k/v into the cache
-tensors of ``state`` in place and returns a state that shares them.
+tensors of ``state`` in place and returns a state that shares them. SWA
+archs (mixtral) decode into a ring buffer of ``min(seq_len, window)``
+positions, written at ``pos % S``.
 """
 from __future__ import annotations
 
@@ -28,37 +28,62 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.nn import transformer as tfm
 from repro_torch.nn.attention import KVCache
-from repro_torch.nn.init import embed_init, split_keys
+from repro_torch.nn.init import dense_init, embed_init, split_keys
 from repro_torch.nn.layers import embed as embed_lookup
+from repro_torch.nn.moe import dropped_share, load_balancing_loss
 
 
 def _dtype(cfg):
     return getattr(torch, cfg.dtype)
 
 
-def _require_text_lm(cfg):
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch.models.lm yet "
-            "(ROADMAP.md Queue 1 item 11); the dense family is")
-    if cfg.mrope or cfg.frontend != "none":
-        raise NotImplementedError("M-RoPE and stub frontends are not ported to repro_torch "
-                                  "yet (ROADMAP.md Queue 1 item 11, VLM)")
-    if cfg.attn_pattern == "swa":
-        raise NotImplementedError("sliding-window ring-buffer caches are not ported to "
-                                  "repro_torch yet (ROADMAP.md Queue 1 item 11, MoE: mixtral)")
+# Leaves of 2 or more dimensions whose use sites compute in f32; every
+# other matrix, expert stack and embedding table is used in cfg.dtype:
+# - "router": the MoE router (nn/moe.py, routing in f32);
+# - "w_input_gate", "w_rec_gate": the RG-LRU gate blocks (nn/ssm.py);
+# - "decay_lora": RWKV6's decay LoRA, both factors (nn/ssm.py `_lora`).
+F32_SUBTREES = frozenset({"router", "w_input_gate", "w_rec_gate", "decay_lora"})
 
 
-def to_storage(params, cfg, device=None):
+def to_storage(params, cfg, device=None, _f32=False):
     """Each leaf in the dtype its use site computes with (see the module
-    docstring), on ``device`` (default: where it is): in the dense family
-    every 2-D leaf is a matrix or an embedding table, used in
-    ``cfg.dtype``, and every 1-D leaf a norm scale, used in f32."""
+    docstring), on ``device`` (default: where it is): a leaf of 2 or more
+    dimensions in ``cfg.dtype`` unless it lies under a key of
+    `F32_SUBTREES`; every 1-D leaf (norm scales, biases, decays, lerp
+    factors: used in f32, or cast from f32 at their use) in f32."""
     if isinstance(params, dict):
-        return {k: to_storage(v, cfg, device) for k, v in params.items()}
+        return {k: to_storage(v, cfg, device, _f32 or k in F32_SUBTREES)
+                for k, v in params.items()}
     if isinstance(params, list):
-        return [to_storage(v, cfg, device) for v in params]
-    return params.to(device=device, dtype=_dtype(cfg) if params.ndim >= 2 else torch.float32)
+        return [to_storage(v, cfg, device, _f32) for v in params]
+    wide = params.ndim >= 2 and not _f32
+    return params.to(device=device, dtype=_dtype(cfg) if wide else torch.float32)
+
+
+def tree_from_numpy(tree, device):
+    """A nested dict of numpy or JAX arrays as f32 tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+
+def layer_list(blocks, n_layers: int, what: str = "blocks"):
+    """The reference's per-layer params as a list of ``n_layers`` trees:
+    from ``{"layer_i": ...}`` blocks, or from stacked blocks
+    (``scan_layers=True``: every leaf with a leading layer axis)."""
+    if "layer_0" in blocks:
+        return [blocks[f"layer_{i}"] for i in range(n_layers)]
+
+    def take(t, i):
+        return {k: take(v, i) for k, v in t.items()} if isinstance(t, dict) else np.asarray(t)[i]
+
+    first = blocks
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    if np.shape(first)[0] != n_layers:
+        raise ValueError(f"stacked {what} hold {np.shape(first)[0]} layers, "
+                         f"config has {n_layers}")
+    return [take(blocks, i) for i in range(n_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -70,12 +95,13 @@ def init_lm(generator: torch.Generator, cfg, device: DeviceLike = None) -> dict:
     drawn in f32 on the generator's device, as the reference's masters
     are, then cast to its storage dtype and moved (a CUDA generator
     initialises a full-width model on the card without a host trip)."""
-    _require_text_lm(cfg)
     dev = resolve_device(device)
     keys = split_keys(generator, cfg.n_layers + 3)
     p = {"embed": {"w": to_storage(embed_init(keys[0], cfg.vocab, cfg.d_model), cfg, dev)}}
     if not cfg.tie_embeddings:
         p["unembed"] = {"w": to_storage(embed_init(keys[1], cfg.vocab, cfg.d_model), cfg, dev)}
+    if cfg.frontend == "vision_stub":
+        p["frontend"] = {"w": to_storage(dense_init(keys[2], cfg.frontend_dim, cfg.d_model), cfg, dev)}
     p["blocks"] = [to_storage(tfm.block_params(keys[3 + i], cfg), cfg, dev)
                    for i in range(cfg.n_layers)]
     p["final_norm"] = tfm.norm_params(cfg, cfg.d_model, dev)
@@ -87,29 +113,9 @@ def params_from_numpy(tree, cfg, device: DeviceLike = None) -> dict:
     arrays) as the port's params on ``device``, in their storage dtypes.
     Takes the stacked ``blocks`` of ``scan_layers=True`` (every leaf with a
     leading layer axis) as well as ``{"layer_i": ...}`` blocks."""
-    _require_text_lm(cfg)
     dev = resolve_device(device)
-
-    def conv(t):
-        if isinstance(t, dict):
-            return {k: conv(v) for k, v in t.items()}
-        a = np.asarray(t, dtype=np.float32)
-        return torch.from_numpy(a.copy()).to(dev)
-
-    blocks = tree["blocks"]
-    if "layer_0" in blocks:
-        layers = [blocks[f"layer_{i}"] for i in range(cfg.n_layers)]
-    else:
-        def take(t, i):
-            return {k: take(v, i) for k, v in t.items()} if isinstance(t, dict) else np.asarray(t)[i]
-
-        first = blocks["ln1"]["g"]
-        if np.shape(first)[0] != cfg.n_layers:
-            raise ValueError(f"stacked blocks hold {np.shape(first)[0]} layers, "
-                             f"config has {cfg.n_layers}")
-        layers = [take(blocks, i) for i in range(cfg.n_layers)]
-    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [conv(lp) for lp in layers]
+    out = {k: tree_from_numpy(v, dev) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [tree_from_numpy(lp, dev) for lp in layer_list(tree["blocks"], cfg.n_layers)]
     return to_storage(out, cfg)
 
 
@@ -117,14 +123,22 @@ def params_from_numpy(tree, cfg, device: DeviceLike = None) -> dict:
 # embedding / head helpers
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, cfg, tokens):
+def embed_scale(cfg, dtype) -> float:
+    """sqrt(d_model) rounded to the compute dtype first, as the
+    reference's ``jnp.asarray(sqrt(d_model), dtype)``: 50.5 in bf16 at
+    d_model 2560 (a host scalar; nothing is read back from the device)."""
+    return float(torch.tensor(math.sqrt(cfg.d_model), dtype=dtype))
+
+
+def embed_tokens(params, cfg, tokens, patches=None):
     dtype = _dtype(cfg)
     x = embed_lookup(params["embed"], tokens, dtype=dtype)
     if cfg.zero_centered_norm:  # gemma convention
-        # the scale is rounded to the compute dtype first, as the
-        # reference's jnp.asarray(sqrt(d_model), dtype): 50.5 in bf16 (a
-        # host scalar; nothing is read back from the device)
-        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=dtype))
+        x = x * embed_scale(cfg, dtype)
+    if patches is not None:
+        pe = patches.to(dtype) @ params["frontend"]["w"].to(dtype)
+        # image patches occupy the leading positions of the sequence
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     return x
 
 
@@ -135,7 +149,12 @@ def lm_logits(params, cfg, x):
     return x.to(dtype) @ table.to(dtype).T
 
 
-def _positions(cfg, B, S, device):
+def _positions(cfg, batch, B, S, device):
+    if cfg.mrope:
+        if "mrope_positions" in batch:
+            return batch["mrope_positions"]
+        pos = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+        return pos[None].expand(3, B, S)
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
@@ -144,28 +163,38 @@ def _positions(cfg, B, S, device):
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg, batch, *, collect_kv=False, logits_mode="all"):
-    """batch: {"tokens": (B,S) int32}.
+    """batch: {"tokens": (B,S) int32, optional "patches" (B,N,frontend_dim),
+    "mrope_positions" (3,B,S)}.
 
-    Returns (logits, aux). aux: {"kv": (L,B,S,KV,hd) x2} with collect_kv.
+    Returns (logits, aux). aux: {"moe_loss": scalar (MoE), "kv":
+    (L,B,S,KV,hd) x2 with collect_kv}; for MoE also "moe_dropped", the
+    share of routed (token, choice) pairs dropped at capacity, over all
+    layers (a report; the reference has no such key).
     ``logits_mode="last"`` computes the unembed on the final position only
     (prefill path — avoids materialising (B, S, V)).
     """
-    _require_text_lm(cfg)
     dtype = _dtype(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed_tokens(params, cfg, tokens)
-    positions = _positions(cfg, B, S, tokens.device)
+    x = embed_tokens(params, cfg, tokens, batch.get("patches"))
+    positions = _positions(cfg, batch, B, S, tokens.device)
     windows = tfm.layer_windows(cfg)
     thetas = tfm.layer_thetas(cfg)
-    ks, vs = [], []
+    ks, vs, losses, dropped = [], [], [], []
     for lp, window, theta in zip(params["blocks"], windows, thetas):
         x, aux = tfm.block_seq(lp, x, positions, cfg=cfg, window=window, theta=theta,
                                dtype=dtype, return_kv=collect_kv)
         if collect_kv:
             ks.append(aux["kv"][0])
             vs.append(aux["kv"][1])
+        if cfg.family == "moe":
+            losses.append(load_balancing_loss(aux["router_logits"], n_experts=cfg.n_experts))
+            dropped.append(dropped_share(aux["router_logits"], n_experts=cfg.n_experts,
+                                         top_k=cfg.top_k, capacity_factor=cfg.capacity_factor))
     aux = {}
+    if cfg.family == "moe":
+        aux["moe_loss"] = torch.mean(torch.stack(losses))
+        aux["moe_dropped"] = torch.mean(torch.stack(dropped))
     if collect_kv:
         aux["kv"] = (torch.stack(ks, 0), torch.stack(vs, 0))
     if logits_mode == "last":
@@ -177,9 +206,16 @@ def forward(params, cfg, batch, *, collect_kv=False, logits_mode="all"):
 # decode (state = stacked KV caches)
 # ---------------------------------------------------------------------------
 
+def cache_size(cfg, seq_len: int) -> int:
+    """Per-layer KV allocation. Uniform-window archs get ring buffers."""
+    if cfg.attn_pattern == "swa" and cfg.local_window > 0:
+        return min(seq_len, cfg.local_window)
+    return seq_len
+
+
 def init_decode_state(cfg, batch_size: int, seq_len: int, device: DeviceLike = None):
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch_size, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch_size, cache_size(cfg, seq_len), cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
         "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
@@ -187,17 +223,39 @@ def init_decode_state(cfg, batch_size: int, seq_len: int, device: DeviceLike = N
     }
 
 
+def rehome_into(full, state):
+    """``state`` (as a family's ``prefill`` returns it) copied into ``full``,
+    a fresh ``init_decode_state`` on the same device, the way the
+    reference's ``examples/serve_lm.py`` re-homes it: a top-level tensor
+    whose shape differs from ``full``'s (a KV cache sized to the prompt)
+    is written into the leading positions of ``full``'s; any other entry
+    (same shape, ``pos``, or a nested per-layer dict, which serve_lm.py
+    does not re-home) is taken from ``state``, copied. A prompt longer
+    than ``full``'s cache (an SWA ring shorter than the prompt) cannot be
+    re-homed, in the reference as here: ValueError. Returns ``full``."""
+    def copy(t):
+        return {k: copy(v) for k, v in t.items()} if isinstance(t, dict) else t.clone()
+
+    for k, v in state.items():
+        dst = full.get(k)
+        if isinstance(dst, torch.Tensor) and k != "pos" and dst.shape != v.shape:
+            if v.ndim != dst.ndim or any(a > b for a, b in zip(v.shape, dst.shape)):
+                raise ValueError(f"cannot re-home {k!r} of shape {tuple(v.shape)} into a decode "
+                                 f"state of shape {tuple(dst.shape)} (a prompt longer than the "
+                                 "cache, e.g. an SWA window)")
+            dst[tuple(slice(0, n) for n in v.shape)] = v
+        else:
+            full[k] = copy(v)
+    return full
+
+
 def rehome_state(cfg, state, seq_len: int):
     """``state`` (as `prefill` returns it, its caches sized to the prompt)
-    copied into a fresh decode state with caches of ``seq_len`` positions,
-    on the same device: room for ``seq_len - pos`` decode steps. The
-    reference does this in ``examples/serve_lm.py``."""
-    B, T = state["k"].shape[1:3]
-    full = init_decode_state(cfg, B, seq_len, state["k"].device)
-    full["k"][:, :, :T] = state["k"]
-    full["v"][:, :, :T] = state["v"]
-    full["pos"] = state["pos"].clone()
-    return full
+    copied into a fresh decode state for ``seq_len`` positions, on the
+    same device: room for ``seq_len - pos`` decode steps (`rehome_into`).
+    SWA archs get a ring of ``min(seq_len, window)`` positions."""
+    B = state["k"].shape[1]
+    return rehome_into(init_decode_state(cfg, B, seq_len, state["k"].device), state)
 
 
 def decode_step(params, cfg, state, token, *, use_kernel=False):
@@ -206,17 +264,21 @@ def decode_step(params, cfg, state, token, *, use_kernel=False):
     The caches of ``state`` are written in place and shared with the new
     state; ``pos`` stays a device scalar. ``use_kernel`` routes every
     layer's decode attention through the flash-decode kernel
-    (`repro_torch.kernels.ops.decode_attn`) with the layer's window.
+    (`repro_torch.kernels.ops.decode_attn`) with the layer's window (0 on
+    a ring cache).
     """
-    _require_text_lm(cfg)
     dtype = _dtype(cfg)
     pos = state["pos"]
     x = embed_tokens(params, cfg, token[:, None])[:, 0]
     windows = tfm.layer_windows(cfg)
     thetas = tfm.layer_thetas(cfg)
+    # SWA archs use ring-buffer caches sized to the window; attention is
+    # permutation-invariant over KV entries so ring order needs no masking.
+    ring = cfg.attn_pattern == "swa" and cfg.local_window > 0
     for i, (lp, window, theta) in enumerate(zip(params["blocks"], windows, thetas)):
         x, _ = tfm.block_step(lp, x, KVCache(state["k"][i], state["v"][i]), pos, cfg=cfg,
-                              window=window, theta=theta, dtype=dtype, use_kernel=use_kernel)
+                              window=window, theta=theta, dtype=dtype, ring=ring,
+                              use_kernel=use_kernel)
     logits = lm_logits(params, cfg, x[:, None, :])[:, 0]
     return logits, {"k": state["k"], "v": state["v"], "pos": pos + 1}
 

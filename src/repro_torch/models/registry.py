@@ -1,21 +1,11 @@
 """Uniform model interface over the architecture families — the port of
-``repro.models.registry``. The dense family is ported; every other family
-raises ``NotImplementedError`` naming its ROADMAP item."""
+``repro.models.registry``."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
-
-# family -> what is missing for it (ROADMAP.md Queue 1 item 11)
-_NOT_PORTED = {
-    "moe": "the MoE family (nn/moe.py), ROADMAP.md Queue 1 item 11",
-    "vlm": "the VLM family (M-RoPE, vision stub), ROADMAP.md Queue 1 item 11",
-    "rwkv": "the RWKV family (models/rwkv.py), ROADMAP.md Queue 1 item 11",
-    "hybrid": "the hybrid family (models/hybrid.py, nn/ssm.py), ROADMAP.md Queue 1 item 11",
-    "encdec": "the encoder-decoder family (models/whisper.py), ROADMAP.md Queue 1 item 11",
-}
+from repro_torch.models import hybrid, lm, rwkv, whisper
 
 
 class Model(NamedTuple):
@@ -25,19 +15,42 @@ class Model(NamedTuple):
     prefill: Callable  # (params, batch) -> (logits, state)
     decode_step: Callable  # (params, state, token, **kw) -> (logits, state)
     init_decode_state: Callable  # (batch, seq_len, device=None) -> state dict
+    # the port's own: the reference's params (numpy or JAX arrays) on a
+    # device, and a prefill state re-homed as examples/serve_lm.py does
+    params_from_numpy: Callable  # (tree, device=None) -> params
+    rehome_state: Callable  # (state, seq_len) -> state
+
+
+_FAMILY_MODULES = {
+    "dense": lm,
+    "moe": lm,
+    "vlm": lm,
+    "rwkv": rwkv,
+    "hybrid": hybrid,
+    "encdec": whisper,
+}
+
+_INITS = {
+    "dense": lm.init_lm,
+    "moe": lm.init_lm,
+    "vlm": lm.init_lm,
+    "rwkv": rwkv.init_rwkv,
+    "hybrid": hybrid.init_hybrid,
+    "encdec": whisper.init_encdec,
+}
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch yet: "
-            f"{_NOT_PORTED.get(cfg.family, 'unknown family')}")
+    mod = _FAMILY_MODULES[cfg.family]
+    init_fn = _INITS[cfg.family]
     return Model(
         cfg=cfg,
-        init=lambda generator, device=None: lm.init_lm(generator, cfg, device),
-        forward=lambda params, batch, **kw: lm.forward(params, cfg, batch, **kw),
-        prefill=lambda params, batch: lm.prefill(params, cfg, batch),
-        decode_step=lambda params, state, token, **kw: lm.decode_step(params, cfg, state, token, **kw),
-        init_decode_state=lambda batch_size, seq_len, device=None: lm.init_decode_state(
+        init=lambda generator, device=None: init_fn(generator, cfg, device),
+        forward=lambda params, batch, **kw: mod.forward(params, cfg, batch, **kw),
+        prefill=lambda params, batch: mod.prefill(params, cfg, batch),
+        decode_step=lambda params, state, token, **kw: mod.decode_step(params, cfg, state, token, **kw),
+        init_decode_state=lambda batch_size, seq_len, device=None: mod.init_decode_state(
             cfg, batch_size, seq_len, device),
+        params_from_numpy=lambda tree, device=None: mod.params_from_numpy(tree, cfg, device),
+        rehome_state=lambda state, seq_len: mod.rehome_state(cfg, state, seq_len),
     )

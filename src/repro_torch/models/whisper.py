@@ -1,0 +1,235 @@
+"""Whisper-large-v3 backbone: encoder-decoder transformer — the port of
+``repro.models.whisper``.
+
+The conv/mel frontend is a stub, as in the reference: ``batch["frames"]``
+holds precomputed frame embeddings (B, enc_seq, d_model).
+``params["encoder"]`` and ``params["decoder"]`` are lists with one dict a
+layer. The decode state is the reference's: the self-attention caches
+``k``/``v`` (L, B, S, KV, hd), written in place; the cross-attention
+keys/values ``ck``/``cv`` (L, B, enc_seq, KV, hd), made once by `prefill`
+and held unchanged; and ``pos``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.models.lm import layer_list, rehome_into, to_storage, tree_from_numpy
+from repro_torch.nn import attention as attn_lib
+from repro_torch.nn.attention import KVCache
+from repro_torch.nn.init import embed_init, split_keys
+from repro_torch.nn.layers import embed as embed_lookup
+from repro_torch.nn.layers import layernorm, layernorm_params, mlp, mlp_params
+from repro_torch.nn.rope import sinusoid_rows, sinusoid_table
+
+
+def _dtype(cfg):
+    return getattr(torch, cfg.dtype)
+
+
+def _mask_pad_vocab(cfg, logits):
+    """Rows [vocab, padded_vocab) of the padded table are dead tokens."""
+    if cfg.padded_vocab == cfg.vocab:
+        return logits
+    dead = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+    return logits + torch.where(dead, -1e9, 0.0).to(logits.dtype)
+
+
+def _attn_params(generator, cfg):
+    return attn_lib.attention_params(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.head_dim)
+
+
+def _enc_layer_params(generator, cfg):
+    k1, k2 = split_keys(generator, 2)
+    dev = generator.device
+    return {
+        "ln1": layernorm_params(cfg.d_model, device=dev),
+        "attn": _attn_params(k1, cfg),
+        "ln2": layernorm_params(cfg.d_model, device=dev),
+        "mlp": mlp_params(k2, cfg.d_model, cfg.d_ff, cfg.d_model),
+    }
+
+
+def _dec_layer_params(generator, cfg):
+    k1, k2, k3 = split_keys(generator, 3)
+    dev = generator.device
+    return {
+        "ln1": layernorm_params(cfg.d_model, device=dev),
+        "self_attn": _attn_params(k1, cfg),
+        "ln_x": layernorm_params(cfg.d_model, device=dev),
+        "cross_attn": _attn_params(k2, cfg),
+        "ln2": layernorm_params(cfg.d_model, device=dev),
+        "mlp": mlp_params(k3, cfg.d_model, cfg.d_ff, cfg.d_model),
+    }
+
+
+def init_encdec(generator: torch.Generator, cfg, device: DeviceLike = None) -> dict:
+    dev = resolve_device(device)
+    keys = split_keys(generator, 4)
+    return {
+        "embed": {"w": to_storage(embed_init(keys[0], cfg.padded_vocab, cfg.d_model), cfg, dev)},
+        "encoder": [to_storage(_enc_layer_params(k, cfg), cfg, dev)
+                    for k in split_keys(keys[1], cfg.n_enc_layers)],
+        "decoder": [to_storage(_dec_layer_params(k, cfg), cfg, dev)
+                    for k in split_keys(keys[2], cfg.n_layers)],
+        "enc_ln": layernorm_params(cfg.d_model, device=dev),
+        "dec_ln": layernorm_params(cfg.d_model, device=dev),
+    }
+
+
+def params_from_numpy(tree, cfg, device: DeviceLike = None) -> dict:
+    """The reference's ``init_encdec`` params (stacked encoder and decoder
+    layers) as the port's, on ``device``, in their storage dtypes."""
+    dev = resolve_device(device)
+    out = {k: tree_from_numpy(v, dev) for k, v in tree.items() if k not in ("encoder", "decoder")}
+    out["encoder"] = [tree_from_numpy(lp, dev)
+                      for lp in layer_list(tree["encoder"], cfg.n_enc_layers, "encoder layers")]
+    out["decoder"] = [tree_from_numpy(lp, dev)
+                      for lp in layer_list(tree["decoder"], cfg.n_layers, "decoder layers")]
+    return to_storage(out, cfg)
+
+
+def _self_attn(lp, x, mask, *, cfg, dtype):
+    q, k, v = attn_lib.project_qkv(
+        lp, x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim, dtype=dtype)
+    ctx = attn_lib.mha(q, k, v, mask, dtype=dtype)
+    return attn_lib.attn_out(lp, ctx, dtype=dtype), (k, v)
+
+
+def _cross_kv(lp, enc_out, *, cfg, dtype):
+    B, S, _ = enc_out.shape
+    e = enc_out.to(dtype)
+    return ((e @ lp["wk"].to(dtype)).reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
+            (e @ lp["wv"].to(dtype)).reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+
+
+def _cross_attn(lp, x, ck, cv, *, cfg, dtype):
+    B, T, _ = x.shape
+    q = (x.to(dtype) @ lp["wq"].to(dtype)).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    ctx = attn_lib.mha(q, ck, cv, None, dtype=dtype)
+    return attn_lib.attn_out(lp, ctx, dtype=dtype)
+
+
+def _logits(params, cfg, x, dtype):
+    x = layernorm(params["dec_ln"], x, dtype=dtype)
+    return _mask_pad_vocab(cfg, x @ params["embed"]["w"].to(dtype).T)
+
+
+def encode(params, cfg, frames):
+    """frames: (B, enc_seq, d_model) stub embeddings -> encoder output."""
+    dtype = _dtype(cfg)
+    S = frames.shape[1]
+    x = frames.to(dtype) + sinusoid_table(S, cfg.d_model, frames.device).to(dtype)[None]
+    for lp in params["encoder"]:
+        h = layernorm(lp["ln1"], x, dtype=dtype)
+        y, _ = _self_attn(lp["attn"], h, None, cfg=cfg, dtype=dtype)
+        x = x + y
+        h = layernorm(lp["ln2"], x, dtype=dtype)
+        x = x + mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
+    return layernorm(params["enc_ln"], x, dtype=dtype)
+
+
+def forward(params, cfg, batch, *, collect_kv=False, logits_mode="all"):
+    """Teacher-forced decode over the full target sequence. batch:
+    {"tokens": (B, T), "frames": (B, enc_seq, d_model)}. Returns (logits,
+    aux); aux {"kv": (L,B,T,KV,hd) x2, "cross": (L,B,enc_seq,KV,hd) x2}
+    with collect_kv."""
+    dtype = _dtype(cfg)
+    tokens = batch["tokens"]
+    T = tokens.shape[1]
+    enc_out = encode(params, cfg, batch["frames"])
+    x = embed_lookup(params["embed"], tokens, dtype=dtype)
+    x = x + sinusoid_table(T, cfg.d_model, tokens.device).to(dtype)[None]
+    t_ar = torch.arange(T, dtype=torch.int32, device=tokens.device)
+    mask = attn_lib.make_mask(t_ar, t_ar, None)
+    ks, vs, cks, cvs = [], [], [], []
+    for lp in params["decoder"]:
+        h = layernorm(lp["ln1"], x, dtype=dtype)
+        y, (k, v) = _self_attn(lp["self_attn"], h, mask, cfg=cfg, dtype=dtype)
+        x = x + y
+        h = layernorm(lp["ln_x"], x, dtype=dtype)
+        ck, cv = _cross_kv(lp["cross_attn"], enc_out, cfg=cfg, dtype=dtype)
+        x = x + _cross_attn(lp["cross_attn"], h, ck, cv, cfg=cfg, dtype=dtype)
+        h = layernorm(lp["ln2"], x, dtype=dtype)
+        x = x + mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
+        if collect_kv:
+            for acc, t in zip((ks, vs, cks, cvs), (k, v, ck, cv)):
+                acc.append(t)
+    if logits_mode == "last":
+        x = x[:, -1:, :]
+    aux = {}
+    if collect_kv:
+        aux["kv"] = (torch.stack(ks), torch.stack(vs))
+        aux["cross"] = (torch.stack(cks), torch.stack(cvs))
+    return _logits(params, cfg, x, dtype), aux
+
+
+def init_decode_state(cfg, batch_size: int, seq_len: int, device: DeviceLike = None):
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    L = cfg.n_layers
+    kv = (L, batch_size, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    cross = (L, batch_size, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(kv, dtype=dtype, device=dev),
+        "v": torch.zeros(kv, dtype=dtype, device=dev),
+        "ck": torch.zeros(cross, dtype=dtype, device=dev),
+        "cv": torch.zeros(cross, dtype=dtype, device=dev),
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def rehome_state(cfg, state, seq_len: int):
+    """A prefill state in a fresh decode state whose self-attention caches
+    hold ``seq_len`` positions (``examples/serve_lm.py``'s re-homing)."""
+    B = state["k"].shape[1]
+    return rehome_into(init_decode_state(cfg, B, seq_len, state["k"].device), state)
+
+
+def decode_step(params, cfg, state, token, *, use_kernel=False):
+    """One decode step. token: (B,) int32. Returns (logits (B, V), new
+    state). The self-attention caches are written in place; ``ck``/``cv``
+    pass through unchanged. ``use_kernel`` routes the self-attention
+    through the flash-decode kernel; the cross-attention stays on the
+    plain path, as in the reference."""
+    dtype = _dtype(cfg)
+    B = token.shape[0]
+    pos = state["pos"]
+    S = state["k"].shape[2]
+    x = embed_lookup(params["embed"], token[:, None], dtype=dtype)[:, 0]
+    # row pos of the reference's sinusoid_table(S) (an index past the end
+    # clamps, as dynamic_index_in_dim)
+    x = x + sinusoid_rows(torch.clamp(pos, 0, S - 1), cfg.d_model).to(dtype)
+    cache_len = (pos + 1).to(torch.int32)
+    enc_len = torch.full((), state["ck"].shape[2], dtype=torch.int32, device=token.device)
+    for i, lp in enumerate(params["decoder"]):
+        h = layernorm(lp["ln1"], x[:, None, :], dtype=dtype)[:, 0]
+        q, k, v = attn_lib.project_qkv(
+            lp["self_attn"], h[:, None, :], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, dtype=dtype)
+        cache = attn_lib.cache_update(KVCache(state["k"][i], state["v"][i]), k[:, 0], v[:, 0], pos)
+        ctx = attn_lib.decode_attention(q[:, 0], cache, cache_len, dtype=dtype,
+                                        use_kernel=use_kernel)
+        x = x + attn_lib.attn_out(lp["self_attn"], ctx[:, None], dtype=dtype)[:, 0]
+        h = layernorm(lp["ln_x"], x[:, None, :], dtype=dtype)[:, 0]
+        qx = (h.to(dtype) @ lp["cross_attn"]["wq"].to(dtype)).reshape(B, cfg.n_heads, cfg.head_dim)
+        ctx2 = attn_lib.decode_attention(qx, KVCache(state["ck"][i], state["cv"][i]), enc_len,
+                                         dtype=dtype)
+        x = x + attn_lib.attn_out(lp["cross_attn"], ctx2[:, None], dtype=dtype)[:, 0]
+        h = layernorm(lp["ln2"], x[:, None, :], dtype=dtype)
+        x = x + mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)[:, 0]
+    logits = _logits(params, cfg, x, dtype)
+    return logits, {"k": state["k"], "v": state["v"], "ck": state["ck"], "cv": state["cv"],
+                    "pos": pos + 1}
+
+
+def prefill(params, cfg, batch):
+    """Encoder, then the decoder over the prompt with its caches. Returns
+    (last-token logits (B, 1, V), decode state)."""
+    logits, aux = forward(params, cfg, batch, collect_kv=True, logits_mode="last")
+    k, v = aux["kv"]
+    ck, cv = aux["cross"]
+    T = batch["tokens"].shape[1]
+    pos = torch.tensor(T, dtype=torch.int32, device=k.device)
+    return logits, {"k": k, "v": v, "ck": ck, "cv": cv, "pos": pos}

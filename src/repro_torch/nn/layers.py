@@ -1,11 +1,10 @@
-"""Basic layers: dense, norms, embeddings, MLPs — the port of
-``repro.nn.layers``.
+"""Basic layers: dense, norms, embeddings, MLPs, the causal temporal conv
+— the port of ``repro.nn.layers``.
 
 Weights keep the reference's layout: a dense kernel is (in, out) and is
 used as ``x @ w``. Each use casts its operands to the compute dtype as the
 reference does; the port stores matrices already in that dtype (see
-``repro_torch.models.lm``), so the cast is then a no-op. The causal
-temporal conv of the recurrent families comes with the hybrid slice.
+``repro_torch.models.lm``), so the cast is then a no-op.
 """
 from __future__ import annotations
 
@@ -132,3 +131,35 @@ def mlp_params(generator, d_in, d_hidden, d_out, *, bias=True):
 def mlp(params, x, *, act="gelu", dtype=torch.bfloat16):
     h = _act(act)(dense(params["wi"], x, dtype=dtype))
     return dense(params["wo"], h, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# temporal (causal) conv1d — used by RG-LRU recurrent block frontends
+# ---------------------------------------------------------------------------
+
+def causal_conv1d_params(generator, width, dim):
+    return {"w": dense_init(generator, width, dim),
+            "b": scalar_init(0.0, (dim,), device=generator.device)}
+
+
+def causal_conv1d(params, x, *, dtype=torch.bfloat16):
+    """Depthwise causal temporal conv. x: (B, T, D); w: (W, D)."""
+    w = params["w"].to(dtype)
+    width = w.shape[0]
+    x = x.to(dtype)
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    y = torch.zeros_like(x)
+    for i in range(width):
+        y = y + xp[:, i: i + x.shape[1], :] * w[i]
+    return y + params["b"].to(dtype)
+
+
+def causal_conv1d_step(params, x_t, conv_state, *, dtype=torch.bfloat16):
+    """Single-token decode step. conv_state: (B, W-1, D) past inputs.
+    Returns (y (B, D), new conv_state)."""
+    w = params["w"].to(dtype)
+    width = w.shape[0]
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)  # (B, W, D)
+    y = torch.einsum("bwd,wd->bd", window.to(dtype), w) + params["b"].to(dtype)
+    new_state = window[:, 1:, :] if width > 1 else conv_state
+    return y, new_state

@@ -1,4 +1,4 @@
-"""Decoder blocks (dense family) in sequence mode and single-token decode
+"""Decoder blocks (dense / MoE) in sequence mode and single-token decode
 mode — the port of ``repro.nn.transformer``.
 
 The reference feeds each layer's window and rope theta to one scanned
@@ -13,16 +13,11 @@ from typing import List
 import torch
 
 from repro_torch.nn import attention as attn_lib
+from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import rope as rope_lib
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.init import split_keys
 from repro_torch.nn.layers import gated_mlp, gated_mlp_params, layernorm, layernorm_params, rmsnorm, rmsnorm_params
-
-
-def _require_dense(cfg):
-    if cfg.family == "moe":
-        raise NotImplementedError("the MoE family is not ported to repro_torch yet "
-                                  "(ROADMAP.md Queue 1 item 11, MoE: nn/moe.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -46,8 +41,8 @@ def norm_apply(cfg, params, x, dtype):
 # ---------------------------------------------------------------------------
 
 def block_params(generator, cfg):
-    """One dense decoder block, on ``generator``'s device."""
-    _require_dense(cfg)
+    """One decoder block (dense or MoE depending on cfg), on
+    ``generator``'s device."""
     k_attn, k_mlp = split_keys(generator, 2)
     dev = generator.device
     p = {"ln1": norm_params(cfg, cfg.d_model, dev)}
@@ -57,7 +52,10 @@ def block_params(generator, cfg):
     if cfg.post_attn_norm:
         p["ln1_post"] = norm_params(cfg, cfg.d_model, dev)
     p["ln2"] = norm_params(cfg, cfg.d_model, dev)
-    p["mlp"] = gated_mlp_params(k_mlp, cfg.d_model, cfg.d_ff)
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.moe_params(k_mlp, cfg.d_model, cfg.d_ff, cfg.n_experts)
+    else:
+        p["mlp"] = gated_mlp_params(k_mlp, cfg.d_model, cfg.d_ff)
     return p
 
 
@@ -67,20 +65,32 @@ def block_params(generator, cfg):
 
 def _apply_rope_qk(cfg, q, k, positions, theta):
     if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported to repro_torch yet "
-                                  "(ROADMAP.md Queue 1 item 11, VLM)")
-    q = rope_lib.apply_rope(q, positions, theta)
-    k = rope_lib.apply_rope(k, positions, theta)
+        q = rope_lib.apply_mrope(q, positions, cfg.mrope_sections, theta)
+        k = rope_lib.apply_mrope(k, positions, cfg.mrope_sections, theta)
+    else:
+        q = rope_lib.apply_rope(q, positions, theta)
+        k = rope_lib.apply_rope(k, positions, theta)
     return q, k
+
+
+def _ffn(cfg, params, h, dtype, group_size):
+    """The MLP or MoE half of a block: (output, router logits or None)."""
+    if cfg.family == "moe":
+        return moe_lib.moe_apply(
+            params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, group_size=group_size, dtype=dtype,
+        )
+    return gated_mlp(params["mlp"], h, act=cfg.act, dtype=dtype), None
 
 
 def block_seq(params, x, positions, *, cfg, window: int, theta: float, dtype,
               return_kv: bool = False):
-    """Full-sequence block. x: (B, T, D); positions: (B, T).
+    """Full-sequence block. x: (B, T, D); positions: (B, T) or (3, B, T)
+    for M-RoPE.
 
-    Returns (x_out, aux) where aux optionally holds (k, v).
+    Returns (x_out, aux) where aux holds the router logits (MoE) and
+    optionally (k, v).
     """
-    _require_dense(cfg)
     aux = {}
     T = x.shape[1]
     h = norm_apply(cfg, params["ln1"], x, dtype)
@@ -100,8 +110,10 @@ def block_seq(params, x, positions, *, cfg, window: int, theta: float, dtype,
     x = x + a
 
     h = norm_apply(cfg, params["ln2"], x, dtype)
-    x = x + gated_mlp(params["mlp"], h, act=cfg.act, dtype=dtype)
-    return x, aux
+    m, router_logits = _ffn(cfg, params, h, dtype, cfg.moe_group_size)
+    if router_logits is not None:
+        aux["router_logits"] = router_logits
+    return x + m, aux
 
 
 # ---------------------------------------------------------------------------
@@ -109,13 +121,15 @@ def block_seq(params, x, positions, *, cfg, window: int, theta: float, dtype,
 # ---------------------------------------------------------------------------
 
 def block_step(params, x_t, cache: KVCache, pos, *, cfg, window: int, theta: float, dtype,
-               use_kernel: bool = False):
+               ring: bool = False, use_kernel: bool = False):
     """Single-token decode. x_t: (B, D); pos: scalar int32 tensor, the
     absolute position (stays on the device: the step reads nothing back).
 
-    The cache is updated in place. Returns (x_out, cache).
+    ``ring``: the cache is a ring buffer sized to the window, written at
+    ``pos % S`` (no extra masking needed — attention is permutation-
+    invariant over KV entries). The cache is updated in place. Returns
+    (x_out, cache).
     """
-    _require_dense(cfg)
     B = x_t.shape[0]
     S_cache = cache.k.shape[1]
     h = norm_apply(cfg, params["ln1"], x_t[:, None, :], dtype)
@@ -123,11 +137,14 @@ def block_step(params, x_t, cache: KVCache, pos, *, cfg, window: int, theta: flo
         params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim, dtype=dtype, qk_norm=cfg.qk_norm,
     )
-    q, k = _apply_rope_qk(cfg, q, k, pos.to(torch.int32).expand(B, 1), theta)
-    cache = attn_lib.cache_update(cache, k[:, 0], v[:, 0], pos)
+    pos_b = pos.to(torch.int32).expand((3, B, 1) if cfg.mrope else (B, 1))
+    q, k = _apply_rope_qk(cfg, q, k, pos_b, theta)
+    idx = torch.remainder(pos, S_cache) if ring else pos
+    cache = attn_lib.cache_update(cache, k[:, 0], v[:, 0], idx)
     cache_len = torch.clamp(pos + 1, max=S_cache).to(torch.int32)
     ctx = attn_lib.decode_attention(
-        q[:, 0], cache, cache_len, dtype=dtype, window=window, use_kernel=use_kernel,
+        q[:, 0], cache, cache_len, dtype=dtype, window=0 if ring else window,
+        use_kernel=use_kernel,
     )
     a = attn_lib.attn_out(params["attn"], ctx[:, None], dtype=dtype)[:, 0]
     if cfg.post_attn_norm:
@@ -135,7 +152,7 @@ def block_step(params, x_t, cache: KVCache, pos, *, cfg, window: int, theta: flo
     x_t = x_t + a
 
     h = norm_apply(cfg, params["ln2"], x_t[:, None, :], dtype)
-    m = gated_mlp(params["mlp"], h, act=cfg.act, dtype=dtype)
+    m, _ = _ffn(cfg, params, h, dtype, min(cfg.moe_group_size, B))
     x_t = x_t + m[:, 0]
     return x_t, cache
 

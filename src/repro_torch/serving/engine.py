@@ -6,7 +6,9 @@ A StatefulDecoder is (init_state, step). The reference jits a
 shape. The port keeps, per engine, one CUDA graph of ONE decode step for
 each (state shapes and dtypes, token shape) it meets (`StepGraph`): the
 decoder's step keywords are fixed per engine, so they are part of every
-key. Static buffers hold the token, the KV caches and ``pos``; the argmax
+key. A state is a tree of tensors (dicts, e.g. the hybrid family's
+per-layer dicts; `repro_torch._tree`). Static buffers hold the token and
+every leaf of the state (KV caches, recurrent states, ``pos``); the argmax
 runs inside the graph, which writes the next token back into the token
 buffer and advances ``pos`` in place, so a pass is ``n_steps`` replays with
 one copy of each step's token into the output. The graph reads the
@@ -23,6 +25,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch._tree import tree_map
 from repro_torch.serving.graphs import CAPTURE_LOCK, CapturedGraph, ParamsBinding
 
 
@@ -52,7 +55,12 @@ def copy_state(state):
     # decode steps write the KV cache in place: every pass starts from a
     # copy, so the caller's state is left as it was (as with JAX's
     # immutable arrays) and the timed pass starts where the warm-up did
-    return {k: v.clone() for k, v in state.items()}
+    return tree_map(torch.Tensor.clone, state)
+
+
+def _copy_into(buf: torch.Tensor, value: torch.Tensor) -> None:
+    if value is not buf:  # a leaf the step wrote in place is its own buffer
+        buf.copy_(value)
 
 
 def _sync(device: torch.device) -> None:
@@ -63,8 +71,10 @@ def _sync(device: torch.device) -> None:
 
 class StepGraph:
     """One CUDA graph of one greedy decode step over static buffers: the
-    state (KV caches written in place, ``pos`` advanced in place) and the
-    token, which the step reads and overwrites with its argmax.
+    state's leaves (KV caches written in place, ``pos`` advanced in place,
+    leaves the step passes through, such as whisper's ``ck``/``cv``, left
+    alone) and the token, which the step reads and overwrites with its
+    argmax.
 
     Not reentrant: hold ``lock`` from `load` to the last read of the
     static buffers.
@@ -78,9 +88,7 @@ class StepGraph:
 
         def body():
             logits, new = decoder.step(params, self.state, self.token)
-            for name, buf in self.state.items():
-                if new[name] is not buf:  # pos + 1 is a new tensor
-                    buf.copy_(new[name])
+            tree_map(_copy_into, self.state, new)  # pos + 1 is a new tensor
             # ties go to the first maximum, as jnp.argmax
             self.token.copy_(torch.argmax(logits, dim=-1).to(self.token.dtype))
 
@@ -88,8 +96,7 @@ class StepGraph:
 
     def load(self, state, token: torch.Tensor) -> None:
         """Copy a decode state and the current token into the buffers."""
-        for name, buf in self.state.items():
-            buf.copy_(state[name])
+        tree_map(torch.Tensor.copy_, self.state, state)
         self.token.copy_(token)
 
     def decode(self, n_steps: int) -> torch.Tensor:
@@ -102,9 +109,15 @@ class StepGraph:
         return tokens
 
 
+def _state_key(state):
+    """Names, shapes and dtypes of a state tree, sorted by name."""
+    if isinstance(state, dict):
+        return tuple((name, _state_key(v)) for name, v in sorted(state.items()))
+    return tuple(state.shape), state.dtype
+
+
 def _program_key(state, token):
-    return (tuple((name, tuple(v.shape), v.dtype) for name, v in sorted(state.items())),
-            tuple(token.shape), token.dtype, token.device)
+    return _state_key(state), tuple(token.shape), token.dtype, token.device
 
 
 class DecodeEngine:

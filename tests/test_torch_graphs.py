@@ -300,3 +300,53 @@ def test_rebound_params_reach_the_decode_step_graph(cuda):
     want, _, _ = DecodeEngine(lm_decoder(model), other).generate(full, first, STEPS)
     assert torch.equal(got, want) and not torch.equal(got, before)
     assert len(engine._graphs) == 1  # the stale graph was replaced, not kept beside
+
+
+FAMILY_ARCHS = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-72b", "recurrentgemma-2b",
+                "whisper-large-v3", "rwkv6-1.6b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_every_family_decode_graph_equals_eager(cuda, arch):
+    """Each LM family's decode-step graph (reduced, f32, K4 on) gives the
+    eager steps' greedy stream and final state bit for bit, the state a
+    tree (the hybrid's per-layer dicts, whisper's constant ck/cv); K4
+    counts once an attention layer and replay, none for rwkv6. mixtral
+    runs at window 8 with a 6-token prompt so its ring wraps."""
+    from repro_torch.serving.engine import copy_state
+
+    over = dict(local_window=8) if arch == "mixtral-8x7b" else {}
+    cfg = reduced(get_config(arch), dtype="float32", **over)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(3), device=cuda)
+    # an MoE prefill's tokens fill whole routing groups (64 at reduced width)
+    T = 6 if arch == "mixtral-8x7b" else 32 if cfg.family == "moe" else PROMPT
+    g = torch.Generator(device=cuda).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, T), generator=g, device=cuda,
+                                     dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=g, device=cuda)
+    with torch.no_grad():
+        logits, state = model.prefill(params, batch)
+    full = model.rehome_state(state, T + STEPS)
+    first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    st, tok, eager = copy_state(full), first, []
+    with torch.no_grad():
+        for _ in range(STEPS):
+            lg, st = model.decode_step(params, st, tok, use_kernel=True)
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            eager.append(tok)
+    n_attn = sum(1 for i in range(cfg.n_layers) if cfg.is_attn_layer(i))
+    ops.reset_launches()
+    got, final, _ = DecodeEngine(lm_decoder(model, use_kernel=True), params).generate(
+        full, first, STEPS)
+    assert ops.launches["decode_attn"] == n_attn * STEPS * 2
+    assert torch.equal(got, torch.stack(eager))
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        return torch.equal(a, b)
+
+    assert same(final, st)

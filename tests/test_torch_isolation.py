@@ -4,7 +4,6 @@ traces and fault schedules, and no silent CPU fallback when CUDA is asked
 for."""
 import ast
 import dataclasses
-import json
 import os
 import subprocess
 import sys
@@ -35,7 +34,8 @@ from repro_torch.des.workloads import get_benchmark  # noqa: E402
 from repro_torch.serving import faults as port_faults  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "examples" / "serve_lm_torch.py"]
 FORBIDDEN = ("jax", "repro")
 
 
@@ -62,6 +62,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "import repro_torch.kernels.ops, repro_torch.serving.simnet_engine\n"
         "import repro_torch.des.o3, repro_torch.core.features\n"
         "import repro_torch.models.lm, repro_torch.models.registry, repro_torch.serving.engine\n"
+        "import repro_torch.models.hybrid, repro_torch.models.whisper, repro_torch.models.rwkv\n"
+        "import repro_torch.nn.moe, repro_torch.nn.ssm, repro_torch.nn.rope\n"
         "import repro_torch.nn.attention, repro_torch.configs.registry\n"
         "import repro_torch.serving.faults, repro_torch.serving.compile_cache\n"
         "import repro_torch.serving.graphs, repro_torch.checkpoint\n"
@@ -76,7 +78,7 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -232,22 +234,20 @@ def test_copy_is_the_reference_apart_from_imports(ref, port):
     assert len(COPIES) == 9
 
 
-def _lint(package, paths, cwd):
-    code = (f"import json, sys\nfrom pathlib import Path\nfrom {package} import analysis\n"
-            "findings, modules = analysis.run_lint([Path(p) for p in sys.argv[1:]])\n"
-            "print(json.dumps(sorted(f'{f.rule}|{f.path}|{f.line}|{f.message}' for f in findings)))\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    proc = subprocess.run([sys.executable, "-c", code, *map(str, paths)], env=env, cwd=cwd,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    return json.loads(proc.stdout)
+def _lint(analysis, paths, cwd):
+    """One package's linter over ``paths`` (relative to ``cwd``), in this
+    process: the findings as sortable strings."""
+    findings, _ = analysis.run_lint([cwd / p for p in paths], root=cwd)
+    return sorted(f"{f.rule}|{f.path}|{f.line}|{f.message}" for f in findings)
 
 
 def test_both_linters_give_the_same_findings(tmp_path):
     """`python -m repro_torch lint` runs the port's copy of the analysis
     package: over ``src/`` (both packages, clean) and over a file that
     breaks the lock, hygiene and determinism rules, its findings are the
-    reference's."""
+    reference's. Both linters run in this process (the copy imports only
+    the stdlib; `test_importing_the_port_loads_neither_jax_nor_reference`
+    holds the port's imports in a fresh interpreter)."""
     bad = tmp_path / "repro" / "des" / "bad.py"
     bad.parent.mkdir(parents=True)
     bad.write_text(
@@ -263,10 +263,13 @@ def test_both_linters_give_the_same_findings(tmp_path):
         "            return random.random() + time.time()\n"
         "        except Exception:\n"
         "            return 0.0\n")
-    ref_src, port_src = _lint("repro", ["src"], REPO), _lint("repro_torch", ["src"], REPO)
+    from repro import analysis as ref_analysis
+    from repro_torch import analysis as port_analysis
+
+    ref_src, port_src = _lint(ref_analysis, ["src"], REPO), _lint(port_analysis, ["src"], REPO)
     assert port_src == ref_src == []
     rel = bad.relative_to(tmp_path)
-    ref_bad, port_bad = _lint("repro", [rel], tmp_path), _lint("repro_torch", [rel], tmp_path)
+    ref_bad, port_bad = _lint(ref_analysis, [rel], tmp_path), _lint(port_analysis, [rel], tmp_path)
     assert port_bad == ref_bad
     assert {f.split("|")[0] for f in ref_bad} == {
         "lock-guarded-field", "hygiene-broad-except", "det-unseeded-random", "det-wall-clock"}

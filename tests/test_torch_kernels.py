@@ -426,6 +426,10 @@ def test_conv2s_kernel_refuses_widths_past_its_limit(cuda):
     (3, 32, 4, 64, 500, 0, (7, 500)),             # tinyllama's group of 8
     (2, 32, 8, 128, 300, 100, (299,)),            # qwen3's head_dim
     (3, 10, 1, 64, 256, 0, (200,)),               # a group of 10: head tiles of 2
+    (8, 10, 1, 256, 2048, 0, (1, 1500, 2048)),    # recurrentgemma-2b's MQA ring, full width
+    (8, 20, 20, 64, 128, 0, (1, 65, 128)),        # whisper-large-v3's decoder self-attention
+    (8, 32, 8, 128, 2112, 0, (2049, 2112)),       # mixtral-8x7b's ring (window 0)
+    (8, 64, 8, 128, 2112, 0, (2049, 2112)),       # qwen2-vl-72b
 ])
 def test_decode_attn_kernel_matches_plain(cuda, dtype, B, H, KV, hd, S, window, cache_lens):
     """Both sides compute in f32 from the same inputs, so they differ only

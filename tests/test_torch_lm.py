@@ -37,7 +37,6 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.nn import attention as attn  # noqa: E402
 from repro_torch.nn import layers  # noqa: E402
-from repro_torch.nn import transformer as tfm  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine, lm_decoder  # noqa: E402
 
 DENSE = ("tinyllama-1.1b", "qwen3-4b", "gemma3-4b")
@@ -254,26 +253,7 @@ def test_converter_takes_stacked_and_per_layer_trees():
         lm.params_from_numpy(_np(stacked), dataclasses.replace(cfg, n_layers=5), "cpu")
 
 
-# ---------------------------------------------------------------- errors
-
-
-@pytest.mark.parametrize("name", sorted(n for n, c in REF_ARCHS.items() if c.family != "dense"))
-def test_other_families_raise(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        build_model(reduced(ARCHS[name]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        lm.init_lm(torch.Generator().manual_seed(0), reduced(ARCHS[name]), device="cpu")
-    if ARCHS[name].family == "moe":  # the block builder refuses MoE on its own
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tfm.block_params(torch.Generator().manual_seed(0), reduced(ARCHS[name]))
-
-
-def test_sliding_window_caches_raise():
-    """The SWA ring-buffer cache (mixtral's) waits for the MoE slice; a
-    dense config with that pattern is refused, not run without its ring."""
-    cfg = dataclasses.replace(reduced(ARCHS["tinyllama-1.1b"]), attn_pattern="swa", local_window=16)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        lm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+# -------------------------------------------------------------- re-homing
 
 
 def test_rehome_state_copies_the_prompt_cache():
@@ -290,13 +270,18 @@ def test_rehome_state_copies_the_prompt_cache():
 
 
 def test_entry_points_default_to_cuda():
+    """Every family's entry points: init, decode state and the weight
+    converter run on cuda unless asked for the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; the no-GPU error path cannot be exercised")
-    model = build_model(reduced(ARCHS["gemma3-4b"]))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        model.init_decode_state(1, 8)
+    for name in sorted(ARCHS):
+        model = build_model(reduced(ARCHS[name]))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.init(torch.Generator().manual_seed(0))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.init_decode_state(1, 8)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.params_from_numpy({"blocks": {}})
 
 
 # ------------------------------------------------------------ the pieces
