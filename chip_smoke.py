@@ -23,7 +23,11 @@ launches each makes:
   beside graph replays;
 - the public kernel API ``kernels.ops.conv2s`` (K3), chained over the C3
   trunk, whose result must equal the fused trunk kernel K2's bit for bit
-  (K3 is also timed at each of the three C3 layers);
+  (K3 is also timed at each of the three C3 layers); K4 at gemma3-4b's
+  decode shape (both windows, cache lengths 1, 1500 and 2112) and at each
+  LM family's, in bf16 and f32, each call held to its plain version and
+  timed beside it and beside SDPA, with its launch plan (splits, stages,
+  shared memory) checked against the kernel's own count;
 - LM decode serving: gemma3-4b at full width (random weights from a
   seed), 8 requests x 2048 prompt tokens prefilled, then 64 greedy steps
   through ``DecodeEngine`` with ``use_kernel=True`` (K4 in every layer;
@@ -189,6 +193,33 @@ def bound(n_bytes, n_ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k4_times(torch, k4, q, k, v, cache_len, window):
+    """K4 (``k4``: `ops.decode_attn` or the kernel it wraps) at one shape:
+    kernel, plain and SDPA ms, the bound from the live positions' bytes and
+    their number. SDPA, with a boolean mask of the live positions, is timed
+    as a yardstick only."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels import ref
+
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    hi = min(int(cache_len), S)
+    lo = max(hi - window, 0) if window > 0 else 0
+    pos = torch.arange(S, device=q.device)
+    mask = ((pos < hi) & (pos >= lo)).reshape(1, 1, 1, S)
+    q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    clamped = torch.clamp(cache_len, max=S)
+    n_bytes = 2 * q.nbytes + 2 * B * (hi - lo) * KV * hd * k.element_size() + 4
+    b_ms, b_by = bound(n_bytes, 4 * B * H * (hi - lo) * hd)
+    return dict(
+        ms=time_ms(torch, lambda: k4(q, k, v, cache_len, window=window)),
+        plain_ms=time_ms(torch, lambda: ref.decode_attn_ref(q, k, v, clamped, window=window).to(q.dtype)),
+        library_ms=time_ms(torch, lambda: Fn.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
+                                                                          enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by, live=hi - lo)
+
+
 def trunk_ops(n_lanes, seq, chans):
     """Multiply-adds x 2 of the three k2s2 layers (unpadded channels)."""
     ops, rows = 0, seq
@@ -331,10 +362,10 @@ def conv_decode_kernel_phase(torch, dev, params, x):
     path's shape, each against its plain version; the library call beside
     each is timed only. K3's row in the JSON line is the first layer's."""
     import numpy as np
-    import torch.nn.functional as Fn
 
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.breakdown import K4_SHAPES
 
     rows = []
     h = x  # each layer's input is the layer before's output
@@ -394,45 +425,43 @@ def conv_decode_kernel_phase(torch, dev, params, x):
                       f"{what}: finite, shape {tuple(got.shape)}, max_abs_err={e:.3e}")
                 check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
                       f"{what} matches its plain version (rtol={rtol}, atol={atol})")
-    q, k, v = (t.to(torch.bfloat16) for t in base)
-    cl = torch.tensor(S, dtype=torch.int32, device=dev)
-    pos = torch.arange(S, device=dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"[3b] decode_attn at each family's decode shape, bf16 and f32 ({smi}): kernel, plain and "
+        "SDPA ms; each call held to its plain version at DECODE_TOL")
     timed = {}
-    for window in (0, cfg.local_window):  # global layers first: their row goes in the JSON line
-        live = S if window == 0 else min(window, S)
-        mask = ((pos < S) & (pos >= S - live)).reshape(1, 1, 1, S)
-        q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-
-        def k4(window=window):
-            return ops.decode_attn(q, k, v, cl, window=window)
-
-        def p4(window=window):
-            return ref.decode_attn_ref(q, k, v, cl, window=window).to(q.dtype)
-
-        def lib4(mask=mask):  # SDPA with a boolean mask (yardstick only)
-            return Fn.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
-
-        lib_err = float((lib4()[:, :, 0].float() - p4().float()).abs().max())
-        n_bytes = 2 * q.nbytes + 2 * k[:, :live].nbytes + cl.nbytes
-        b_ms, b_by = bound(n_bytes, 4 * Bq * H * live * hd)
-        timed[window] = dict(ms=time_ms(torch, k4), plain_ms=time_ms(torch, p4),
-                             library_ms=time_ms(torch, lib4), bound_ms=b_ms, bound_by=b_by)
-        t = timed[window]
-        log(f"  decode_attn bf16 window={window} ({live} live positions, {n_bytes / 1e6:.1f} MB): "
-            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms "
-            f"(max |SDPA - plain| {lib_err:.3e}), bound {b_ms:.4f} ms ({b_by}), "
-            f"{100 * b_ms / t['ms']:.1f}% of the bound")
+    for what, B, S_, H_, KV_, hd_, n, window in K4_SHAPES:
+        rng = np.random.default_rng(SEED + H_ + hd_)
+        fam = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+               for shape in ((B, H_, hd_), (B, S_, KV_, hd_), (B, S_, KV_, hd_))]
+        cl = torch.tensor(n, dtype=torch.int32, device=dev)
+        for dtype, (rtol, atol) in DECODE_TOL.items():
+            q, k, v = (t.to(getattr(torch, dtype)) for t in fam)
+            got = ops.decode_attn(q, k, v, cl, window=window)
+            want = ref.decode_attn_ref(q, k, v, torch.clamp(cl, max=S_), window=window).to(q.dtype)
+            e = float((got.float() - want.float()).abs().max())
+            check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol),
+                  f"decode_attn {what} {dtype} matches its plain version (max_abs_err={e:.3e})")
+            t = timed[what, dtype] = k4_times(torch, ops.decode_attn, q, k, v, cl, window)
+            plan = ops.decode_plan(B, S_, H_, KV_, hd_, q.element_size(), sms)
+            log(f"  decode_attn {what} {dtype}: q {tuple(q.shape)}, k/v {tuple(k.shape)}, {t['live']} "
+                f"live; plan {plan.splits} splits, {plan.blocks} blocks, {plan.stages} stages of "
+                f"{plan.tile}, {plan.smem_bytes} B smem: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of the bound, "
+                f"{t['library_ms'] / t['ms']:.2f}x SDPA's speed")
+    glob, loc = timed["gemma3-4b global", "bfloat16"], timed["gemma3-4b local", "bfloat16"]
     n_local = sum(1 for i in range(cfg.n_layers) if cfg.layer_window(i))
-    step_ms = n_local * timed[cfg.local_window]["ms"] + (cfg.n_layers - n_local) * timed[0]["ms"]
-    step_bound = (n_local * timed[cfg.local_window]["bound_ms"]
-                  + (cfg.n_layers - n_local) * timed[0]["bound_ms"])
-    log(f"  per decode step ({n_local} local + {cfg.n_layers - n_local} global layers): "
+    step_ms = n_local * loc["ms"] + (cfg.n_layers - n_local) * glob["ms"]
+    step_bound = n_local * loc["bound_ms"] + (cfg.n_layers - n_local) * glob["bound_ms"]
+    log(f"  per {LM_ARCH} decode step ({n_local} local + {cfg.n_layers - n_local} global layers): "
         f"kernel {step_ms:.4f} ms vs bound {step_bound:.4f} ms; max_abs_err bf16 "
         f"{errs['bfloat16']:.3e}, f32 {errs['float32']:.3e}")
     rows.append(dict(name="decode_attn", route="cuda",
                      source="src/repro_torch/kernels/csrc/decode_attn.cu",
-                     replaces="src/repro/kernels/decode_attn.py:78",
-                     max_abs_err=errs["bfloat16"], **timed[0]))
+                     replaces="src/repro/kernels/decode_attn.py:78", max_abs_err=errs["bfloat16"],
+                     **{key: glob[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}))
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
@@ -850,8 +879,12 @@ def lm_phase(torch, dev):
 
     def k4_share(p):
         if p is not None:
-            k4 = sum(r[0] for r in p["rows"] if "decode_split_kernel" in r[2] or "decode_combine_kernel" in r[2])
-            log(f"    decode_attn (split + combine) {k4:.3f} ms ({100 * k4 / p['busy']:.1f}% of device time)")
+            k4 = [r for r in p["rows"] if "decode_attn_kernel" in r[2]]
+            per_step = sum(r[1] for r in k4) / LM_PROFILE_STEPS
+            log(f"    decode_attn {sum(r[0] for r in k4):.3f} ms "
+                f"({100 * sum(r[0] for r in k4) / p['busy']:.1f}% of device time), {per_step:.1f} "
+                "K4 device kernels a step")
+            check(per_step == cfg.n_layers, f"one K4 device kernel a layer and step ({cfg.n_layers})")
 
     st = copy_state(full)
     p = profiled(torch, lambda: eager_steps(LM_PROFILE_STEPS, st), LM_PROFILE_STEPS)
@@ -1076,13 +1109,13 @@ def family_phase(torch, dev, arch, layers, prompt):
         p = profiled(torch, lambda: graph.decode(LM_PROFILE_STEPS), LM_PROFILE_STEPS)
     log_profile(f"profile of {LM_PROFILE_STEPS} decode-step graph replays", p, top=6)
     check(p is not None, "the profiler saw the replays' device time")
-    k4_rows = [r for r in p["rows"] if "decode_split_kernel" in r[2] or "decode_combine_kernel" in r[2]]
+    k4_rows = [r for r in p["rows"] if "decode_attn_kernel" in r[2]]
     k4_ms = sum(r[0] for r in k4_rows)
-    k4_per_step = sum(r[1] for r in k4_rows if "decode_split_kernel" in r[2]) / LM_PROFILE_STEPS
-    log(f"    decode_attn (split + combine) {k4_ms:.3f} ms ({100 * k4_ms / p['busy']:.1f}% of device "
-        f"time), {k4_per_step:.1f} split-kernel launches a step")
-    check(k4_per_step == n_attn, f"the profiler counts {k4_per_step:.1f} K4 launches a step, one per "
-          f"attention layer ({n_attn})")
+    k4_per_step = sum(r[1] for r in k4_rows) / LM_PROFILE_STEPS
+    log(f"    decode_attn {k4_ms:.3f} ms ({100 * k4_ms / p['busy']:.1f}% of device time), "
+        f"{k4_per_step:.1f} K4 device kernels a step")
+    check(k4_per_step == n_attn, f"the profiler counts {k4_per_step:.1f} K4 device kernels a step, one "
+          f"per attention layer ({n_attn})")
     out = dict(arch=arch, layers=cfg.n_layers, prefill_s=prefill_s, tps=tps,
                step_ms=1e3 * LM_BATCH / tps, eager_ms=1e3 * eager_s / LM_STEPS, nodes=nodes,
                build_s=graph.graph.capture_seconds + graph.graph.instantiate_seconds,
@@ -1116,12 +1149,8 @@ def first_step_gates(torch, model, params, full, first, copy_state):
     def held_k4(q, k, v, cache_len, *, window=0):
         out = real_k4(q, k, v, cache_len, window=window)
         key = (tuple(q.shape), tuple(k.shape), window)
-        if key not in timed:  # K4 alone at this shape, CUDA events over 20 launches
-            B, H, hd = q.shape
-            live = min(int(cache_len), k.shape[1], window or k.shape[1])
-            n_bytes = 2 * q.nbytes + 2 * B * live * k.shape[2] * hd * k.element_size() + 4
-            timed[key] = (time_ms(torch, lambda: real_k4(q, k, v, cache_len, window=window)),
-                          *bound(n_bytes, 4 * B * H * live * hd), live)
+        if key not in timed:  # K4 alone at this shape, CUDA events over 20 launches; SDPA beside it
+            timed[key] = k4_times(torch, real_k4, q, k, v, cache_len, window)
         want = ref.decode_attn_ref(q, k, v, torch.clamp(cache_len, max=k.shape[1]),
                                    window=window).to(q.dtype)
         seen.append((tuple(q.shape), tuple(k.shape), window,
@@ -1157,9 +1186,11 @@ def first_step_gates(torch, model, params, full, first, copy_state):
         check(all(ok for *_, ok in seen), f"each of the first step's {len(seen)} K4 calls matches its "
               f"plain version on the same inputs (rtol={rtol}, atol={atol}): max_abs_err "
               f"{max(errs):.3e}; q, k/v, window: {shapes}")
-        for (qs, ks, w), (ms, b_ms, b_by, live) in timed.items():
-            log(f"  decode_attn at q {qs}, k/v {ks}, window {w} ({live} live positions): kernel "
-                f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the bound")
+        for (qs, ks, w), t in timed.items():
+            log(f"  decode_attn at q {qs}, k/v {ks}, window {w} ({t['live']} live positions): kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of the "
+                "bound")
     # the live vocabulary: whisper's padded rows carry -1e9 on both paths
     a, b, free = (t[:, :model.cfg.vocab].float() for t in (a, b, free))
     scale = float(b.abs().max())
@@ -1231,10 +1262,11 @@ def families_phase(torch, dev):
     results = [family_phase(torch, dev, arch, layers, prompt) for arch, layers, prompt in FAMILY_RUNS]
     log(f"[12] summary ({smi}): arch | layers | prefill s | graph tokens/s | graph ms/step | eager "
         "ms/step | build s | graph nodes | device busy | device ops/step | K4 share | K4 launches | "
-        "K4 ms / bound ms | peak GB | dropped")
+        "K4 ms / bound ms / SDPA ms | peak GB | dropped")
     for r in results:
         dropped = "-" if r["dropped"] is None else f"{100 * r['dropped']:.3f}%"
-        k4 = "-" if r["k4_timed"] is None else f"{r['k4_timed'][0]:.4f} / {r['k4_timed'][1]:.4f}"
+        t = r["k4_timed"]
+        k4 = "-" if t is None else f"{t['ms']:.4f} / {t['bound_ms']:.4f} / {t['library_ms']:.4f}"
         log(f"  {r['arch']} | {r['layers']} | {r['prefill_s']:.3f} | {r['tps']:.1f} | {r['step_ms']:.3f} | "
             f"{r['eager_ms']:.3f} | {r['build_s']:.3f} | {r['nodes']} | {100 * r['busy']:.1f}% | "
             f"{r['ops']:.1f} | {100 * r['k4_share']:.1f}% | {r['k4']} | {k4} | {r['peak']:.2f} | {dropped}")
@@ -1658,7 +1690,8 @@ def main():
                          check=True, capture_output=True, text=True).stdout.strip()
     log(smi)
 
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.breakdown import K4_SHAPES
 
     t0 = time.perf_counter()
     built = _build.build()
@@ -1685,6 +1718,18 @@ def main():
             f"(of {max_smem}), {v[1]} blocks of {v[2]} tiles of <= {v[4]} rows, {v[3]} slots a "
             f"warp group, W padded to {v[0]} columns, "
             f"{('loaded', 'resident by bulk copies', 'streamed')[v[6]]}")
+
+    k4_smem = getattr(ctypes.CDLL(str(built["decode_attn"].path)), "decode_attn_smem_bytes")
+    k4_smem.argtypes, k4_smem.restype = [ctypes.c_int] * 4, ctypes.c_int
+    for what, B, S, H, KV, hd, _, _ in K4_SHAPES:
+        for eb in (2, 4):
+            p = ops.decode_plan(B, S, H, KV, hd, eb, props.multi_processor_count, max_smem)
+            c_smem = k4_smem(hd, int(eb == 2), p.rt, p.stages)
+            check(c_smem == p.smem_bytes, f"decode_attn {what} {('f32', 'bf16')[eb == 2]}: plan "
+                  f"{p.splits} splits x {B * KV * p.row_groups} = {p.blocks} blocks of {p.threads} "
+                  f"threads, {p.row_tiles} row tile(s), {p.stages} stages of {p.tile} positions, "
+                  f"{p.smem_bytes} B of dynamic shared memory (the kernel's count: {c_smem}), "
+                  f"{p.blocks_per_sm} blocks an SM")
 
     pcfg, params, rows, x = kernel_phase(torch, dev)
     rows += conv_decode_kernel_phase(torch, dev, params, x)

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), their wrappers
 (``ops``), their plain PyTorch versions (``ref``) and their build
-(``_build``); ``breakdown`` times cut-down copies of the trunk kernels on
-the card. Every Pallas kernel of the reference has its counterpart:
+(``_build``); ``breakdown`` times cut-down copies of the kernels on the
+card. Every Pallas kernel of the reference has its counterpart:
 
   fused_step  — ring-state model-input assembly + the C3 trunk in one
                 kernel (replaces repro/kernels/fused_step.py); the SimNet
@@ -11,7 +11,8 @@ the card. Every Pallas kernel of the reference has its counterpart:
                 the roll layout and bf16 state
   conv2s      — one k2s2 conv + bias + ReLU (replaces
                 repro/kernels/conv2s.py); the public ``ops.conv2s`` API
-  decode_attn — one-token GQA flash-decode with a split KV length and a
-                combine pass (replaces repro/kernels/decode_attn.py); the
-                LM decode path, ``decode_step(..., use_kernel=True)``
+  decode_attn — one-token GQA flash-decode in one launch: a copy ring and
+                tensor-core MMAs, the splits of the KV length merged by
+                their last block (replaces repro/kernels/decode_attn.py);
+                the LM decode path, ``decode_step(..., use_kernel=True)``
 """

@@ -1,16 +1,21 @@
-"""Where the time of the hand-written conv kernels goes, on the card.
+"""Where the time of the hand-written kernels goes, on the card.
 
-Builds cut-down copies of K1 (``fused_step``), K2 (``cnn_trunk``) and K3
-(``conv2s``) from the sources in ``csrc/`` and times each, with CUDA events
-over 20 launches. K1/K2 at the main path's shape (1024 lanes, Q = 64,
-seq_padded 72) and at one workload's 128 lanes; K3 at the three C3 layers
-at 1024 lanes ((1024, 72, 50) -> 64, (1024, 36, 64) -> 128,
-(1024, 18, 128) -> 128):
+Builds cut-down copies of K1 (``fused_step``), K2 (``cnn_trunk``), K3
+(``conv2s``) and K4 (``decode_attn``) from the sources in ``csrc/`` and
+times each, with CUDA events over 20 launches. K1/K2 at the main path's
+shape (1024 lanes, Q = 64, seq_padded 72) and at one workload's 128 lanes;
+K3 at the three C3 layers at 1024 lanes ((1024, 72, 50) -> 64,
+(1024, 36, 64) -> 128, (1024, 18, 128) -> 128); K4 at gemma3-4b's decode
+shape (both windows) and at each other family's, in bf16:
 
   full          the kernels as they are
   stream_only   no FMAs: (K1/K2) the tile's input, the weight slabs and
                 their waits; (K3) the input tiles, the weights and the
-                stores
+                stores; (K4) no MMAs and no softmax: the copy ring, its
+                waits and releases, and the merges and stores
+  ring_only     (K4) stream_only without the merge of the splits
+  bulk_rows_ring_only  (K4) ring_only with one bulk copy (cp.async.bulk)
+                a K or V row filling the ring instead of 16 bytes a lane
   compute_only  (K2) the FMAs over the first slabs only: no weight traffic
                 after the prologue; (K3) the FMAs and the stores, with no
                 input tile copied or waited for
@@ -19,7 +24,9 @@ then samples the SM clock and the power draw while K2, then K3 at the
 first layer, run back to back. Run it on a machine with the card, from the
 root of a checkout:
 
-    PYTHONPATH=src python -m repro_torch.kernels.breakdown
+    PYTHONPATH=src python -m repro_torch.kernels.breakdown [decode_attn]
+
+(``decode_attn``: K4's parts alone.)
 
 The copies are built under ``build/kernels/breakdown/``; the port never
 loads them.
@@ -30,6 +37,7 @@ import ctypes
 import re
 import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -45,6 +53,37 @@ K3_FMA = "    slab_fma<TM, NP>(arow, k0, w + cg * 4, min(S::kSlabRows, K - k0), 
 K3_COPY = ("    bulk_load(sm.slots + slot * p.slot_floats, p.x + a * p.K, (unsigned)(n_rows * p.K * 4),\n"
            "              &sm.full[slot]);\n")
 K3_WAIT = "      mbar_wait(&sm.full[slot], use & 1);\n"
+K4_NO_MATH = ("      if (n_live > 0) {\n", "      if (n_live > (1 << 30)) {  // no MMAs, no softmax\n")
+K4_NO_MERGE = ("  if (a.n_splits == 1) return;\n", "  return;  // no merge of the splits\n")
+# K4's stages by one bulk copy (cp.async.bulk) a K or V row instead of 16
+# bytes a lane (the redesign's first ring): the slot's full barrier takes
+# one arrival and the rows' bytes; V rows past the live range zeroed
+K4_BULK_ROWS = [
+    ("        sm90::mbar_init(&full[s], 32);\n", "        sm90::mbar_init(&full[s], 1);\n"),
+    ("""#pragma unroll 4
+  for (int i = lane; i < TP * Sh::kChunks; i += 32) {
+    const int r = i / Sh::kChunks, c = i % Sh::kChunks;
+    const bool in = r < rows;
+    const size_t off = ((((size_t)b * a.S + p0 + (in ? r : 0)) * a.KV + kv) * HD) * sizeof(T) + c * 16;
+    cp_async16(k_d + r * ROW + c * 16, reinterpret_cast<const char*>(a.k) + off, in);
+    cp_async16(v_d + r * ROW + c * 16, reinterpret_cast<const char*>(a.v) + off, in);
+  }
+  cp_async_arrive(&full[slot]);
+""", """  for (int i = rows * Sh::kChunks + lane; i < TP * Sh::kChunks; i += 32) {
+    *reinterpret_cast<uint4*>(v_d + (i / Sh::kChunks) * ROW + (i % Sh::kChunks) * 16) =
+        make_uint4(0, 0, 0, 0);
+  }
+  sm90::fence_async_shared();
+  __syncwarp();
+  if (lane == 0) sm90::mbar_expect_tx(&full[slot], 2u * rows * HD * sizeof(T));
+  __syncwarp();
+  for (int r = lane; r < rows; r += 32) {
+    const size_t off = (((size_t)b * a.S + p0 + r) * a.KV + kv) * HD;
+    sm90::bulk_copy(k_d + r * ROW, a.k + off, HD * sizeof(T), &full[slot]);
+    sm90::bulk_copy(v_d + r * ROW, a.v + off, HD * sizeof(T), &full[slot]);
+  }
+"""),
+]
 # source edited -> {variant: [(old line, new line)]}, and the kernels built from it
 VARIANTS = {
     "trunk_common.cuh": ({
@@ -62,17 +101,32 @@ VARIANTS = {
         "stream_only": [(K3_FMA, "    if (load_a4(arow[0], k0).x == 1234.5f) acc[0][0] += 1.f;\n")],
         "compute_only": [(K3_COPY, ""), (K3_WAIT, "")],
     }, ("conv2s",)),
+    "decode_attn.cu": ({
+        "full": [],
+        "stream_only": [K4_NO_MATH],
+        "ring_only": [K4_NO_MATH, K4_NO_MERGE],
+        "bulk_rows_ring_only": [K4_NO_MATH, K4_NO_MERGE] + K4_BULK_ROWS,
+    }, ("decode_attn",)),
 }
-ARGS = {"fused_step": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-        "cnn_trunk": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-        "conv2s": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+ARGS = {name: argtypes for name, (_, _, argtypes) in _build.KERNELS.items()}
 K3_LAYERS = ((72, 50, 64), (36, 64, 128), (18, 128, 128))  # (N, C, Co) at 1024 lanes
+# K4: (what, B, S, H, KV, hd, cache_len, window), each family's decode shape
+# in chip_smoke.py (8 requests; 2048-token prompts + 64 steps, whisper 64 + 64)
+K4_SHAPES = (("gemma3-4b global", 8, 2112, 8, 4, 256, 2112, 0),
+             ("gemma3-4b local", 8, 2112, 8, 4, 256, 2112, 1024),
+             ("mixtral-8x7b", 8, 2112, 32, 8, 128, 2049, 0),
+             ("qwen2-vl-72b", 8, 2112, 64, 8, 128, 2049, 0),
+             ("recurrentgemma-2b", 8, 2048, 10, 1, 256, 2048, 0),
+             ("whisper-large-v3", 8, 128, 20, 20, 64, 65, 0))
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 
 
-def build():
-    """{(kernel, variant): C entry point}, one nvcc per library, all at once."""
+def build(sources=tuple(VARIANTS)):
+    """{(kernel, variant): C entry point} for the variants of ``sources``, one
+    nvcc per library, all at once."""
     procs = {}
-    for source, (variants, kernels) in VARIANTS.items():
+    for source in sources:
+        variants, kernels = VARIANTS[source]
         original = (_build.CSRC / source).read_text()
         for variant, edits in variants.items():
             text = original
@@ -166,16 +220,20 @@ def clock_and_power(what, run, seconds=3.0):
           " | ".join(s.strip() for s in samples if s.strip()), flush=True)
 
 
-def main():
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    entries = build()
     g = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    if argv == ["decode_attn"]:
+        decode_parts(build(("decode_attn.cu",)), g, torch.cuda.current_device(), stream)
+        return
+    entries = build()
     weights = [(torch.randn(2 * a, b, device="cuda", generator=g) * 0.1,
                 torch.randn(b, device="cuda", generator=g) * 0.05)
                for a, b in ((50, 64), (64, 128), (128, 128))]
     w = [t.data_ptr() for wb in weights for t in wb]
-    stream = torch.cuda.current_stream().cuda_stream
     for lanes in (1024, 128):
         x = torch.randn(lanes, 72, 50, device="cuda", generator=g)
         state = ring_state(lanes)  # held while the kernels read it
@@ -209,6 +267,44 @@ def main():
     clock_and_power("cnn_trunk", lambda: [trunk_run() for _ in range(200)])
     k3_run = checked(entries["conv2s", "full"], k3_args[0][1])
     clock_and_power("conv2s (1024, 72, 50) -> 64", lambda: [k3_run() for _ in range(200)])
+    decode_parts(entries, g, dev, stream)
+
+
+def decode_parts(entries, g, dev, stream):
+    """K4 full vs its ring alone at each family's shape, in bf16: time, the
+    fraction of the byte bound (each K/V byte of the live range, q and the
+    output once) and of 3.35 TB/s that the live K/V alone reach."""
+    from repro_torch.kernels import ops
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for what, B, S, H, KV, hd, cache_len, window in K4_SHAPES:
+        q = torch.randn(B, H, hd, device="cuda", generator=g).to(torch.bfloat16)
+        k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        cl = torch.tensor(cache_len, dtype=torch.int32, device="cuda")
+        plan = ops.decode_plan(B, S, H, KV, hd, 2, sms)
+        live = min(cache_len, S) if window == 0 else min(window, cache_len, S)
+        kv_bytes = 2 * B * live * KV * hd * 2
+        n_bytes = kv_bytes + 2 * q.nbytes + 4
+        line = [f"decode_attn {what}: q {tuple(q.shape)}, k/v {tuple(k.shape)}, {live} live, plan "
+                f"{plan.splits} splits x {B * KV * plan.row_groups} = {plan.blocks} blocks, "
+                f"{plan.stages} stages of {plan.tile}, {plan.smem_bytes} B smem; bound "
+                f"{1e6 * n_bytes / PEAK_BYTES_PER_S:.1f} us"]
+        out = torch.empty_like(q)
+        tickets = torch.zeros(B * KV * plan.row_groups, dtype=torch.int32, device="cuda")
+        part_ml = torch.empty(B, H, plan.splits, 2, device="cuda")
+        part_acc = torch.empty(B, H, plan.splits, hd, device="cuda")
+        for variant in VARIANTS["decode_attn.cu"][0]:
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(), part_ml.data_ptr(),
+                    part_acc.data_ptr(), tickets.data_ptr(), out.data_ptr(), B, S, H, KV, hd, 1,
+                    window, plan.splits, plan.stages, plan.rt, plan.row_groups, plan.smem_bytes,
+                    dev, stream)
+            us = time_us(checked(entries["decode_attn", variant], args))
+            rate = kv_bytes / (us * 1e-6)  # bytes a second
+            line.append(f"{variant} {us:.2f} us ({100 * 1e6 * n_bytes / PEAK_BYTES_PER_S / us:.1f}% of "
+                        f"the bound, live K/V at {rate / 1e9:.0f} GB/s = "
+                        f"{100 * rate / PEAK_BYTES_PER_S:.1f}% of 3.35 TB/s)")
+        print("; ".join(line), flush=True)
 
 
 if __name__ == "__main__":

@@ -8,15 +8,15 @@ allocated here with ``torch.empty``; the kernels allocate nothing.
 
 ``launches`` counts kernel launches per wrapper (plain integers, bumped
 only where a kernel is launched), so a run can show that its main path
-went through the kernels. A wrapper call counts once, even where it
-launches two kernels (``decode_attn``: the split pass and its combine).
-A CUDA graph's replay runs no Python, so each graph adds the counts its
-capture recorded at every replay (`serving.graphs.CapturedGraph`): the
-counts keep meaning the launches the card ran.
+went through the kernels. Each wrapper call launches one kernel and
+counts once. A CUDA graph's replay runs no Python, so each graph adds the
+counts its capture recorded at every replay
+(`serving.graphs.CapturedGraph`): the counts keep meaning the launches
+the card ran.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -217,13 +217,102 @@ def fused_step(layer_params: Sequence[dict], state, cur_feat: torch.Tensor,
 
 _DECODE_DTYPES = (torch.float32, torch.bfloat16)
 _DECODE_HEAD_DIMS = (32, 64, 128, 256)
+# K4's shared memory (csrc/decode_attn.cu): what a block may opt into on an
+# H100, an SM's whole, and what the card keeps of it for each resident block
+DECODE_SMEM_OPTIN = 232_448
+_SM_SMEM, _BLOCK_RESERVED = 233_472, 1_024
+_DECODE_MAX_STAGES, _DECODE_MAX_SPLITS = 8, 64
 
 
-def _decode_splits(dev: torch.device, B: int, KV: int, S: int) -> int:
-    """Splits of the KV length: enough (batch row, kv head, split) blocks to
-    put about four on each SM, but no split shorter than 64 positions."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-4 * sms // (B * KV)), -(-S // 64)))
+class DecodePlan(NamedTuple):
+    """K4's launch: ``splits`` of the live range x (``row_groups`` blocks a
+    kv head, ``rt`` 16-row tiles of query heads each) x kv heads x batch rows,
+    ``threads`` a block (one producer warp and ``tile // 16`` consumer
+    warps), a ring of ``stages`` stages of ``tile`` positions, and
+    ``smem_bytes`` of dynamic shared memory, ``blocks_per_sm`` of which fit
+    on an SM."""
+    splits: int
+    stages: int
+    smem_bytes: int
+    row_tiles: int
+    rt: int
+    row_groups: int
+    tile: int
+    threads: int
+    blocks: int
+    blocks_per_sm: int
+
+
+def decode_plan(B: int, S: int, H: int, KV: int, hd: int, elem_bytes: int, n_sm: int,
+                max_smem: int = DECODE_SMEM_OPTIN) -> DecodePlan:
+    """K4's launch plan from the shapes and the SM count alone (no host
+    sync: the live length is on the card). The layout is the kernel's
+    (``decode_attn_smem_bytes`` there must agree):
+
+    - a padded row is ``hd * elem_bytes + 16`` bytes; a stage holds ``tile``
+      K rows and as many V rows, 64 positions, or 32 where a row is 512
+      bytes or more;
+    - the ``ceil(G / 16)`` row tiles of a group go to one block, or, past two
+      tiles at hd <= 128 or one at hd 256 (the registers of the
+      accumulators), to ``row_groups`` blocks that each read the K/V;
+    - the most stages (3 to 8) that keep two blocks on an SM, else 3;
+    - splits at least two stages long (a short cache gets one), and no more
+      than the last block's merge holds in its ring at once (the group's
+      rows x hd f32 a split); among the counts that give every SM a block,
+      if any do, the one whose busiest SM has the least to do, a block
+      counting as its share of S plus two stages (its start and its merge),
+      then the fewest splits.
+    """
+    if hd not in _DECODE_HEAD_DIMS or H % KV or elem_bytes not in (2, 4):
+        raise ValueError(f"decode_attn kernel takes head_dim in {_DECODE_HEAD_DIMS}, H a multiple "
+                         f"of KV and bf16 or f32; got hd={hd}, H={H}, KV={KV}, {elem_bytes}-byte values")
+    row = hd * elem_bytes + 16
+    tile = 64 if hd * elem_bytes <= 256 else 32
+    consumers = tile // 16
+    threads = 32 * (consumers + 1)
+    row_tiles = -(-(H // KV) // 16)
+    row_groups = -(-row_tiles // (2 if hd <= 128 else 1))
+    rt = -(-row_tiles // row_groups)
+    p_bytes = consumers * 16 * 17 * 4 if elem_bytes == 4 else 0
+    ring_offset = -(-(256 + rt * 16 * row + p_bytes) // 128) * 128
+    rows = rt * 16  # the consumer warps' merge (merge_floats in the kernel)
+    merge = 4 * consumers * rows * (hd + 6)
+
+    def smem(stages):
+        return ring_offset + max(stages * 2 * tile * row, merge)
+
+    two = _SM_SMEM // 2 - _BLOCK_RESERVED
+    stages = max([s for s in range(3, _DECODE_MAX_STAGES + 1) if smem(s) <= two], default=3)
+    if smem(stages) > max_smem:
+        raise ValueError(f"decode_attn kernel needs {smem(stages)} bytes of shared memory a block "
+                         f"at hd={hd}, past the {max_smem} a block may take")
+    blocks_per_sm = min(_SM_SMEM // (smem(stages) + _BLOCK_RESERVED), 2048 // threads)
+    pairs = B * KV * row_groups
+    # the splits' merge: weights of 64 splits a row, then the partials
+    merge_room = stages * 2 * tile * row - -(-rows * (_DECODE_MAX_SPLITS * 12 + 4) // 16) * 16
+    max_splits = max(1, min(_DECODE_MAX_SPLITS, S // (2 * tile),
+                            merge_room // (min(rows, H // KV) * hd * 4)))
+    counts = [s for s in range(1, max_splits + 1) if pairs * s >= n_sm] or range(1, max_splits + 1)
+    splits = min(counts, key=lambda s: (-(-pairs * s // n_sm) * (S / s + 2 * tile), s))
+    return DecodePlan(splits, stages, smem(stages), row_tiles, rt, row_groups, tile, threads,
+                      splits * pairs, blocks_per_sm)
+
+
+# Per (device, stream): K4's merge tickets, uint32 zeros that the kernel
+# leaves at zero (the last block of each merge wraps its counter back). A
+# call, a graph captured on a stream, and a graph's replays read the
+# stream's buffer; a buffer outgrown is kept (a graph may hold it).
+_tickets: dict = {}
+
+
+def _decode_tickets(dev: torch.device, n: int) -> torch.Tensor:
+    bufs = _tickets.setdefault((dev.index, torch.cuda.current_stream(dev).cuda_stream), [])
+    if not bufs or bufs[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_attn's first call on a stream (or at a larger B x KV) "
+                               "cannot be captured: call it once on the capture stream first")
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32, device=dev))
+    return bufs[-1]
 
 
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_len, *,
@@ -231,8 +320,9 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_len, *,
     """Flash-decode GQA. q: (B,H,hd); k,v: (B,S,KV,hd); cache_len: scalar
     int32 (a device tensor on the decode path; it is never read on the
     host), clamped to S as the reference's wrapper does. -> (B,H,hd) in q's
-    dtype. On the card q, k and v share one dtype, f32 or bf16. At least
-    one position must be live (the decode path's cache_len is pos + 1 >= 1):
+    dtype. On the card q, k and v share one dtype, f32 or bf16, and the
+    kernel runs as one launch of `decode_plan`'s grid. At least one
+    position must be live (the decode path's cache_len is pos + 1 >= 1):
     with none, the kernel returns zeros where the plain version averages
     every v row."""
     B, H, hd = q.shape
@@ -255,15 +345,18 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_len, *,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start 16-byte aligned (the kernel loads 16 bytes a lane)")
+            raise ValueError(f"{name} must start 16-byte aligned (the kernel copies 16-byte units)")
     out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
     if B == 0 or H == 0:
         return out
-    n_splits = _decode_splits(dev, B, KV, S)
-    part_m = torch.empty((B, H, n_splits), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, H, n_splits, hd), dtype=torch.float32, device=dev)
+    props = torch.cuda.get_device_properties(dev)
+    plan = decode_plan(B, S, H, KV, hd, q.element_size(), props.multi_processor_count,
+                       getattr(props, "shared_memory_per_block_optin", 0) or DECODE_SMEM_OPTIN)
+    tickets = _decode_tickets(dev, B * KV * plan.row_groups)
+    part_ml = torch.empty((B, H, plan.splits, 2), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((B, H, plan.splits, hd), dtype=torch.float32, device=dev)
     _launch("decode_attn", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-            B, S, H, KV, hd, int(q.dtype == torch.bfloat16), int(window), n_splits)
+            part_ml.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+            B, S, H, KV, hd, int(q.dtype == torch.bfloat16), int(window), plan.splits,
+            plan.stages, plan.rt, plan.row_groups, plan.smem_bytes, dev.index)
     return out

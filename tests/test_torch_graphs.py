@@ -350,3 +350,32 @@ def test_every_family_decode_graph_equals_eager(cuda, arch):
         return torch.equal(a, b)
 
     assert same(final, st)
+
+
+@pytest.mark.cuda
+def test_decode_attn_graph_replays_reset_the_merge_tickets(cuda):
+    """One K4 call with several splits (qwen2-vl-72b's decode shape),
+    captured in a CUDA graph and replayed three times with another
+    cache_len each time, equals an eager call bit for bit every time: the
+    last block of each merge leaves its ticket at 0 for the next replay."""
+    B, H, KV, hd, S = 8, 64, 8, 128, 2112
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, torch.bfloat16)
+               for shape in ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    props = torch.cuda.get_device_properties(cuda)
+    assert ops.decode_plan(B, S, H, KV, hd, 2, props.multi_processor_count).splits > 1
+    cl = torch.tensor(S, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):  # first call on the capture stream: its tickets, the kernel loaded
+        ops.decode_attn(q, k, v, cl)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = ops.decode_attn(q, k, v, cl)
+    for n in (2049, 1, 1500):
+        cl.fill_(n)
+        graph.replay()
+        want = ops.decode_attn(q, k, v, torch.tensor(n, dtype=torch.int32, device=cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), f"replay with cache_len {n}"

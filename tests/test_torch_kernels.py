@@ -173,6 +173,169 @@ def test_plain_decode_attn_matches_reference(ref_ops, B, H, KV, hd, S, cache_len
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)
 
 
+# ------------------------------------------------- K4's plan and arithmetic
+
+# every family's K4 shape at LM_BATCH = 8 (chip_smoke.py): q (B, H, hd),
+# k/v (B, S, KV, hd); whisper's decoder cache is 128 slots, recurrentgemma's
+# ring 2048, the others' 2112 (2048 prompt + 64 steps)
+_H100_SMS, _LM_BATCH = 132, 8
+
+
+def _family_shapes():
+    from repro_torch.configs.registry import get_config, list_archs
+
+    shapes = []
+    for arch in list_archs():
+        cfg = get_config(arch)
+        S = 128 if cfg.family == "encdec" else 2048 if cfg.family == "hybrid" else 2112
+        shapes.append((arch, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, S))
+    return shapes
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+def test_decode_plan_at_every_arch(elem_bytes):
+    """K4's launch plan at each arch's full width: within the shared memory
+    a block may take, ceil(G / 16) row tiles, at least one block an SM
+    wherever B x KV, S and the merge's room allow it, and one split at
+    whisper's short cache."""
+    for arch, H, KV, hd, S in _family_shapes():
+        plan = ops.decode_plan(_LM_BATCH, S, H, KV, hd, elem_bytes, _H100_SMS)
+        G = H // KV
+        assert plan.smem_bytes <= ops.DECODE_SMEM_OPTIN, arch
+        assert plan.row_tiles == -(-G // 16) and plan.rt * plan.row_groups >= plan.row_tiles, arch
+        assert 3 <= plan.stages <= 8 and plan.threads == 32 * (plan.tile // 16 + 1), arch
+        assert plan.blocks == plan.splits * _LM_BATCH * KV * plan.row_groups, arch
+        most = max(ops.decode_plan(_LM_BATCH, S, H, KV, hd, elem_bytes, 10 ** 6).splits, 1)
+        assert plan.blocks >= _H100_SMS or plan.splits == most, (arch, plan)
+        assert plan.blocks_per_sm >= 1 and 1 <= plan.splits <= 64, arch
+        if arch == "whisper-large-v3":
+            assert plan.splits == 1, plan
+    # the bf16 plans the decode paths run (PERF.md): two 110 KB blocks an SM
+    want = {"gemma3-4b": (8, 3, 256), "qwen2-vl-72b": (4, 3, 256), "mixtral-8x7b": (4, 3, 256),
+            "recurrentgemma-2b": (8, 3, 64), "whisper-large-v3": (1, 6, 160)}
+    if elem_bytes == 2:
+        for arch, H, KV, hd, S in _family_shapes():
+            if arch in want:
+                plan = ops.decode_plan(_LM_BATCH, S, H, KV, hd, 2, _H100_SMS)
+                assert (plan.splits, plan.stages, plan.blocks) == want[arch], (arch, plan)
+                assert plan.blocks_per_sm == 2, (arch, plan)
+
+
+def test_decode_plan_groups_wider_than_the_accumulators():
+    """Row tiles past what a block's accumulators hold (two at hd <= 128,
+    one at hd 256) go to more blocks of the same kv head; hd outside
+    32/64/128/256 is refused."""
+    plan = ops.decode_plan(2, 300, 48, 2, 128, 2, _H100_SMS)  # G = 24: two tiles, one block
+    assert (plan.row_tiles, plan.rt, plan.row_groups) == (2, 2, 1)
+    plan = ops.decode_plan(1, 4000, 64, 1, 64, 2, _H100_SMS)  # G = 64: four tiles, two blocks
+    assert (plan.row_tiles, plan.rt, plan.row_groups) == (4, 2, 2)
+    plan = ops.decode_plan(1, 4000, 32, 1, 256, 2, _H100_SMS)  # hd 256: one tile a block
+    assert (plan.row_tiles, plan.rt, plan.row_groups) == (2, 1, 2)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.decode_plan(1, 64, 8, 2, 96, 2, _H100_SMS)
+
+
+def _k4_emulation(q, k, v, cache_len, window):
+    """K4's arithmetic in plain torch, as csrc/decode_attn.cu orders it:
+    the live range cut into `decode_plan`'s splits (a multiple of 16
+    positions each); in each split, consumer warp w takes positions
+    [16 w, 16 w + 16) of every stage of ``tile`` positions and keeps its
+    own online softmax, one step per 16 positions: exact bf16 products
+    summed in f32, logits / sqrt(hd), P split into bf16 hi + lo for P V; the
+    warps merge, then the splits (the last block's merge), each weighted by
+    exp(m - max m), and the result is acc / max(l, 1e-30) in the inputs'
+    dtype."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    plan = ops.decode_plan(B, S, H, KV, hd, q.element_size(), _H100_SMS)
+    hi = min(cache_len, S)
+    lo = max(hi - window, 0) if window > 0 else 0
+    live = max(hi - lo, 0)
+    chunk = -(-(-(-live // plan.splits)) // 16) * 16
+    qf = q.float().reshape(B, KV, G, hd)
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))  # (B, KV, S, hd)
+    sqrt_hd = torch.sqrt(torch.tensor(float(hd)))
+    neg = torch.tensor(float("-inf"))
+
+    def merge(parts):
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        acc, L = torch.zeros_like(parts[0][2]), torch.zeros_like(parts[0][1])
+        for m, l, a in parts:
+            wt = torch.where(m == neg, 0.0, torch.exp(m - M))
+            acc, L = acc + wt[..., None] * a, L + wt * l
+        return M, L, acc
+
+    splits = []
+    for split in range(plan.splits):
+        s0 = lo + split * chunk
+        s1 = min(s0 + chunk, hi)
+        warps = []
+        for w in range(plan.tile // 16):
+            m = torch.full((B, KV, G), float("-inf"))
+            l, acc = torch.zeros((B, KV, G)), torch.zeros((B, KV, G, hd))
+            for t0 in range(s0, s1, plan.tile):
+                p0 = t0 + 16 * w
+                if p0 >= s1:
+                    continue
+                n = min(16, s1 - p0)
+                x = torch.einsum("bkgh,bksh->bkgs", qf, kf[:, :, p0:p0 + n]) / sqrt_hd
+                m_new = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(x - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                p_hi = p.to(torch.bfloat16).float() if q.dtype == torch.bfloat16 else p
+                p_lo = (p - p_hi).to(torch.bfloat16).float()
+                pv = torch.einsum("bkgs,bksh->bkgh", p_hi, vf[:, :, p0:p0 + n])
+                if q.dtype == torch.bfloat16:
+                    pv = pv + torch.einsum("bkgs,bksh->bkgh", p_lo, vf[:, :, p0:p0 + n])
+                acc = acc * alpha[..., None] + pv
+                m = m_new
+            warps.append((m, l, acc))
+        splits.append(merge(warps))
+    _, L, acc = merge(splits)
+    return (acc / torch.clamp(L, min=1e-30)[..., None]).reshape(B, H, hd).to(q.dtype)
+
+
+# (B, H, KV, hd) of each family's decode, at a reduced S = 640
+_FAMILY_K4 = {"gemma3-4b": (8, 8, 4, 256), "mixtral-8x7b": (8, 32, 8, 128),
+              "qwen2-vl-72b": (8, 64, 8, 128), "recurrentgemma-2b": (8, 10, 1, 256),
+              "whisper-large-v3": (8, 20, 20, 64)}
+
+
+@pytest.mark.parametrize("cache_len,window", [(640, 0), (1, 0), (513, 200), (700, 0)])
+@pytest.mark.parametrize("family", list(_FAMILY_K4))
+def test_k4_arithmetic_emulation_matches_reference(ref_ops, family, cache_len, window):
+    """The bf16 hi + lo split of P, the 16-position online softmax steps and
+    the warp and split merges, emulated on the CPU, against the Pallas
+    kernel (interpret mode) at the bf16 tolerance the card holds K4 to
+    (chip_smoke.py's DECODE_TOL: rtol 2**-7, atol 1e-4). 700 > S: clamped."""
+    import jax.numpy as jnp
+
+    B, H, KV, hd = _FAMILY_K4[family]
+    S = 640
+    q, k, v = _decode_inputs(B, H, KV, hd, S, seed=hd + H, dtype=torch.bfloat16)
+    got = _k4_emulation(q, k, v, cache_len, window)
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v))
+    want = ref_ops.decode_attn(jq, jk, jv, jnp.asarray(cache_len, jnp.int32), window=window)
+    assert got.shape == (B, H, hd) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=2 ** -7, atol=1e-4)
+
+
+def test_k4_emulation_splits_as_the_plan_says():
+    """The emulation runs the plan's splits: gemma3-4b's shape at S = 640
+    takes several, whisper's at its 128-slot cache one; with several splits
+    the merge matches the one-split plain version in f32 (P not split)
+    within f32 rounding."""
+    assert ops.decode_plan(8, 640, 8, 4, 256, 2, _H100_SMS).splits > 1
+    assert ops.decode_plan(8, 128, 20, 20, 64, 2, _H100_SMS).splits == 1
+    q, k, v = _decode_inputs(8, 8, 4, 256, 640, seed=3)
+    got = _k4_emulation(q, k, v, 600, 0)
+    want = ref.decode_attn_ref(q, k, v, torch.tensor(600), window=0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------------------- CPU dispatch
 
 
@@ -430,10 +593,16 @@ def test_conv2s_kernel_refuses_widths_past_its_limit(cuda):
     (8, 20, 20, 64, 128, 0, (1, 65, 128)),        # whisper-large-v3's decoder self-attention
     (8, 32, 8, 128, 2112, 0, (2049, 2112)),       # mixtral-8x7b's ring (window 0)
     (8, 64, 8, 128, 2112, 0, (2049, 2112)),       # qwen2-vl-72b
+    (2, 16, 2, 32, 300, 0, (1, 200, 300)),        # hd 32 with a group of 8
+    (2, 32, 2, 128, 700, 0, (1, 640, 700)),       # a group of 16: one full row tile
+    (2, 48, 2, 128, 700, 0, (1, 640, 700)),       # a group of 24: two row tiles in a block
+    (1, 64, 1, 64, 900, 0, (1, 900)),             # a group of 64: two blocks a kv head
+    (1, 8, 2, 64, 500, 64, (1, 64, 65, 500)),     # B = 1; a window of exactly one stage
 ])
 def test_decode_attn_kernel_matches_plain(cuda, dtype, B, H, KV, hd, S, window, cache_lens):
-    """Both sides compute in f32 from the same inputs, so they differ only
-    in summation order. f32 at rtol=atol=1e-5. In bf16 the outputs are
+    """Both sides compute in f32 from the same inputs (the kernel's bf16 P is
+    split into hi + lo, within 2**-16 of P), so they differ only in
+    summation order. f32 at rtol=atol=1e-5. In bf16 the outputs are
     rounded to bf16 (8 significant bits), and a sum order can move a value
     across a rounding boundary: one bf16 step, at most 2**-7 of the value,
     hence rtol=2**-7 with atol=1e-4 for values near zero."""
@@ -448,3 +617,41 @@ def test_decode_attn_kernel_matches_plain(cuda, dtype, B, H, KV, hd, S, window, 
         assert ops.launches["decode_attn"] == before + 1 and got.dtype == dt
         want = ref.decode_attn_ref(q, k, v, torch.clamp(cl, max=S), window=window).to(dt)
         torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=f"cache_len {cache_len}")
+
+
+@pytest.mark.cuda
+def test_decode_attn_is_one_device_kernel_a_call(cuda):
+    """A call with several splits (qwen2-vl-72b's shape) runs one device
+    kernel, the merge included, and counts one launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, H, KV, hd, S = 8, 64, 8, 128, 2112
+    q, k, v = _decode_inputs(B, H, KV, hd, S, seed=9, dtype=torch.bfloat16, device=cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    assert ops.decode_plan(B, S, H, KV, hd, 2, props.multi_processor_count).splits > 1
+    cl = torch.tensor(2049, dtype=torch.int32, device=cuda)
+    ops.decode_attn(q, k, v, cl)
+    torch.cuda.synchronize()
+    before = ops.launches["decode_attn"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.decode_attn(q, k, v, cl)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "decode_attn" in e.name]
+    assert ops.launches["decode_attn"] == before + 3
+    assert len(kernels) == 3 and all("decode_attn_kernel" in e.name for e in kernels), \
+        [e.name for e in kernels]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,hd,S", [(8, 64, 8, 128, 2112),   # several splits: the merge
+                                         (2, 4, 2, 64, 100)])      # one split
+def test_decode_attn_kernel_without_live_positions_gives_zeros(cuda, B, H, KV, hd, S):
+    """A cache_len of 0 or below leaves no live position: the kernel writes
+    zeros, as its wrapper states."""
+    q, k, v = _decode_inputs(B, H, KV, hd, S, seed=4, dtype=torch.bfloat16, device=cuda)
+    for cache_len in (0, -3):
+        got = ops.decode_attn(q, k, v, torch.tensor(cache_len, dtype=torch.int32, device=cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.zeros_like(got)), cache_len
