@@ -58,7 +58,18 @@ launches each makes:
   the step graph, counted and read from the profiler, graph = eager
   tokens, every K4 call of the first step held to its plain version, the
   first step's logits on both paths), then each non-dense family at
-  reduced width in f32 on the card and the CPU (kernel = plain = CPU).
+  reduced width in f32 on the card and the CPU (kernel = plain = CPU);
+- LM training (phase [13]): every family at reduced width in f32, 3 Adam
+  steps at accum_steps 2 on the card and the CPU from the same masters
+  (losses, grad norms and params held), a reduced run checkpointed and
+  resumed on the card (the restored state bit for bit), tinyllama-1.1b
+  trained at full width for 20 steps of ``launch.train.train`` (bf16 on
+  f32 masters, remat, 2 microbatches of 4 x 2048 tokens: ms a step,
+  tokens/s, peak memory, model FLOPs and their share of the bf16 peak,
+  a profile of 3 more steps), and its trained masters, cast to serving
+  storage, decoded through ``DecodeEngine`` with K4 (every K4 call of the
+  first step held to its plain version at tinyllama's decode shape, and
+  the step's logits to the plain path).
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -155,6 +166,33 @@ VLM_PATCHES = 256  # qwen2-vl: stub image patches in the leading positions
 FAMILY_EXACT_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-72b",
                       "recurrentgemma-2b", "whisper-large-v3", "rwkv6-1.6b")
 FAMILY_EXACT_PROMPT = 32
+# phase [13]: LM training. (a) every family at reduced width in f32 (one
+# arch a family, gemma3-4b for its local/global layers: 6 layers), 3 Adam
+# steps at accum_steps 2 on (2, 16) batches, the card against the CPU:
+# losses within 1e-5 and grad norms within 1e-4 relative (f32 sums in
+# another order: ~1e-7 a pass, growing through Adam's sqrt(v)); params
+# within 2 x lr (a first Adam step moves a near-zero gradient's param by
+# ~lr whichever sign its last bit gives it)
+TRAIN_EXACT_ARCHS = (("tinyllama-1.1b", {}), ("gemma3-4b", {"n_layers": 6}), ("mixtral-8x7b", {}),
+                     ("qwen2-vl-72b", {}), ("recurrentgemma-2b", {}),
+                     ("whisper-large-v3", {}), ("rwkv6-1.6b", {}))
+TRAIN_EXACT_STEPS, TRAIN_EXACT_ACCUM, TRAIN_EXACT_BATCH, TRAIN_EXACT_SEQ = 3, 2, 2, 16
+TRAIN_EXACT_LR, TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-3, 1e-5, 1e-4
+# (c) tinyllama-1.1b at full width: bf16 compute on f32 masters, remat,
+# the config's accum_steps 2, through launch.train.train; lr 3e-4 with
+# train()'s schedule (warmup steps // 10 = 2, cosine to 20); 3 more steps
+# profiled; (d) the trained model decodes 8 greedy steps with K4, its
+# first step held to the plain path as phase [12]'s are
+LM_TRAIN_ARCH = "tinyllama-1.1b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_LR = 8, 2048, 20, 3e-4
+LM_TRAIN_PROFILE_STEPS, LM_TRAIN_DECODE_PROMPT, LM_TRAIN_DECODE_STEPS = 3, 64, 8
+PEAK_BF16_FLOPS = 989.4e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+# device kernels of a train step by name: (kind, regex), first match wins
+TRAIN_KERNEL_KINDS = (("GEMM (cuBLAS)", r"gemm|xmma|nvjet|cutlass"), ("softmax", r"softmax"),
+                      ("mask (where)", r"where"), ("cast f32 -> bf16", r"bfloat16_copy"),
+                      ("other copies and casts", r"copy"),
+                      ("index / gather / scatter", r"index|gather|scatter"),
+                      ("reductions", r"reduce"))
 
 
 def log(*a):
@@ -1274,6 +1312,230 @@ def families_phase(torch, dev):
     return sum(r["k4"] for r in results)
 
 
+def train_exactness(torch, dev):
+    """Phase [13](a): each family at reduced width in f32, the same masters
+    (drawn by a CPU generator) and batches on the card and the CPU, 3
+    train steps at accum_steps 2: losses, grad norms and the final params
+    held card against CPU."""
+    import numpy as np
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import extras_for
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamConfig, adam_init
+    from repro_torch.training.train_loop import make_train_step
+
+    for arch, over in TRAIN_EXACT_ARCHS:
+        cfg = reduced(get_config(arch), dtype="float32", **over)
+        model = build_model(cfg)
+        step = make_train_step(model, AdamConfig(lr=TRAIN_EXACT_LR), accum_steps=TRAIN_EXACT_ACCUM)
+        rng = np.random.default_rng(SEED)
+        batches = []
+        for _ in range(TRAIN_EXACT_STEPS):
+            b = {"tokens": rng.integers(0, cfg.vocab, (TRAIN_EXACT_BATCH, TRAIN_EXACT_SEQ)).astype(np.int32),
+                 "loss_mask": np.ones((TRAIN_EXACT_BATCH, TRAIN_EXACT_SEQ), np.float32)}
+            b.update({k: f(TRAIN_EXACT_BATCH, TRAIN_EXACT_SEQ) for k, f in extras_for(cfg).items()})
+            batches.append(b)
+        runs = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            params = model.init(torch.Generator().manual_seed(SEED), device=device, masters=True)
+            opt = adam_init(params)
+            hist = []
+            t0 = time.perf_counter()
+            for b in batches:
+                params, opt, m = step(params, opt, {k: torch.from_numpy(v).to(device) for k, v in b.items()})
+                hist.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[where] = (np.array(hist), params, time.perf_counter() - t0)
+        (hc, pc, tc), (hh, ph, th) = runs["card"], runs["cpu"]
+        loss_rel = float(np.max(np.abs(hc[:, 0] - hh[:, 0]) / np.abs(hh[:, 0])))
+        norm_rel = float(np.max(np.abs(hc[:, 1] - hh[:, 1]) / np.abs(hh[:, 1])))
+        p_diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(tensors(pc), tensors(ph)))
+        log(f"[13] (a) {arch} reduced ({cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}), "
+            f"f32: losses {hc[:, 0].round(5).tolist()}, grad norms {hc[:, 1].round(4).tolist()}; "
+            f"card {tc:.2f} s, CPU {th:.2f} s for {TRAIN_EXACT_STEPS} steps")
+        check(np.isfinite(hc).all() and loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_NORM_RTOL
+              and p_diff <= 2 * TRAIN_EXACT_LR,
+              f"{arch}: card = CPU over {TRAIN_EXACT_STEPS} steps at accum_steps {TRAIN_EXACT_ACCUM}: "
+              f"losses max rel diff {loss_rel:.2e} (<= {TRAIN_LOSS_RTOL}), grad norms {norm_rel:.2e} "
+              f"(<= {TRAIN_NORM_RTOL}), params max |diff| {p_diff:.2e} (<= 2 x lr)")
+
+
+def train_resume(torch, dev):
+    """Phase [13](b): reduced tinyllama trains 2 steps on the card and
+    checkpoints; the checkpoint restores bit for bit, and a fresh train()
+    resumes from it for 2 more steps."""
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.launch.train import restore_state, train
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_reduced_config(LM_TRAIN_ARCH))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        kw = dict(reduced=True, batch=4, seq=64, ckpt_dir=tmp, device=dev, log_every=0)
+        first = train(LM_TRAIN_ARCH, steps=2, **kw)
+        params, opt, step = restore_state(CheckpointManager(tmp), model, dev, first["params"])
+        pairs = list(zip(tensors(params), tensors(first["params"]))) + list(zip(
+            tensors({k: opt[k] for k in ("m", "v")}), tensors({k: first["opt"][k] for k in ("m", "v")})))
+        same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b) for a, b in pairs)
+        check(step == 2 and same and torch.equal(opt["step"], first["opt"]["step"]),
+              f"[13] (b) {LM_TRAIN_ARCH} reduced on the card: the checkpoint of step 2 restores "
+              f"{len(pairs)} master and Adam tensors and the step bit for bit")
+        second = train(LM_TRAIN_ARCH, steps=4, **kw)
+    check(len(second["losses"]) == 2 and np.isfinite(second["losses"]).all()
+          and int(second["opt"]["step"]) == 4,
+          f"a fresh train() resumed at step 2 and ran 2 more: losses {np.round(second['losses'], 4).tolist()} "
+          f"(first run {np.round(first['losses'], 4).tolist()})")
+
+
+def train_kernel_kinds(rows):
+    """Device ms of a profile's kernels by `TRAIN_KERNEL_KINDS`, the rest
+    as elementwise."""
+    out = {}
+    for t, _, key in rows:
+        kind = next((k for k, rx in TRAIN_KERNEL_KINDS if re.search(rx, key, re.I)), "elementwise, other")
+        out[kind] = out.get(kind, 0.0) + t
+    return out
+
+
+def lm_train_phase(torch, dev, smi):
+    """Phase [13]: LM training. (a) card = CPU for every family at reduced
+    width, (b) resume on the card, (c) tinyllama-1.1b at full width for
+    LM_TRAIN_STEPS steps of launch.train.train, timed and profiled, (d) its
+    trained masters served through DecodeEngine with K4, the first step
+    held to the plain path."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import DecodeEngine, copy_state, lm_decoder
+    from repro_torch.training import losses, optimizer
+    from repro_torch.training.train_loop import make_train_step
+
+    t_phase = time.perf_counter()
+    train_exactness(torch, dev)
+    train_resume(torch, dev)
+
+    cfg = get_config(LM_TRAIN_ARCH)
+    B, S, L = LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.n_layers
+    tokens = B * S
+    log(f"[13] (c) {LM_TRAIN_ARCH} at full width ({L} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads / {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, vocab {cfg.vocab}), {cfg.dtype} on f32 masters, "
+        f"remat {cfg.remat}, accum_steps {cfg.accum_steps}: {LM_TRAIN_STEPS} steps of launch.train.train "
+        f"at batch {B} x seq {S} ({tokens} tokens a step), lr {LM_TRAIN_LR}, synthetic corpus ({smi})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = train(LM_TRAIN_ARCH, reduced=False, steps=LM_TRAIN_STEPS, batch=B, seq=S, lr=LM_TRAIN_LR,
+                device=dev, log_every=5)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses_c = np.array(res["losses"])
+    norms = np.array([m["grad_norm"] for m in res["metrics"]])
+    step_s = np.array(res["monitor"].history)
+    n_params = sum(t.numel() for t in tensors(res["params"]))
+    ms = 1e3 * float(np.median(step_s[2:]))
+    attn = 6 * L * B * cfg.n_heads * cfg.head_dim * S * S
+    flops = 6 * n_params * tokens + attn
+    log(f"  {LM_TRAIN_STEPS} steps in {wall:.1f} s (init included); step ms: first {1e3 * step_s[0]:.1f}, "
+        f"second {1e3 * step_s[1]:.1f}, median of the rest {ms:.1f} (min {1e3 * step_s[2:].min():.1f}, max "
+        f"{1e3 * step_s[2:].max():.1f}); {tokens / ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} GB ({smi})")
+    log(f"  model FLOPs a step {flops:.4e} = 6 x N x tokens + 6 x L x B x H x hd x S^2 (causal QK and PV, "
+        f"forward and backward) = 6 x {n_params} x {tokens} + 6 x {L} x {B} x {cfg.n_heads} x "
+        f"{cfg.head_dim} x {S}^2; {flops / ms * 1e-9:.1f} TFLOP/s = "
+        f"{100 * flops / (ms * 1e-3) / PEAK_BF16_FLOPS:.2f}% of the {PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s "
+        f"bf16 dense peak ({smi})")
+    log(f"  losses: first {losses_c[:3].round(4).tolist()}, last {losses_c[-5:].round(4).tolist()}; "
+        f"grad norms: first {norms[:3].round(3).tolist()}, last {norms[-3:].round(3).tolist()}")
+    check(len(losses_c) == LM_TRAIN_STEPS and np.isfinite(losses_c).all()
+          and losses_c[-5:].mean() < losses_c[0],
+          f"{LM_TRAIN_STEPS} losses finite, the last 5's mean {losses_c[-5:].mean():.4f} below the first "
+          f"{losses_c[0]:.4f}")
+    check(np.isfinite(norms).all() and (norms > 0).all(), "grad_norm finite and above 0 on every step")
+
+    # where a step's time goes: LM_TRAIN_PROFILE_STEPS more steps profiled
+    model = build_model(cfg)
+    step_fn = make_train_step(model, optimizer.AdamConfig(
+        lr=LM_TRAIN_LR, warmup_steps=max(LM_TRAIN_STEPS // 10, 1), decay_steps=LM_TRAIN_STEPS),
+        accum_steps=cfg.accum_steps)
+    loader = TokenLoader(cfg.vocab, B, S)
+    try:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(loader).items()}
+    finally:
+        loader.close()
+    state = {"params": res.pop("params"), "opt": res.pop("opt")}
+
+    def steps():
+        for _ in range(LM_TRAIN_PROFILE_STEPS):
+            state["params"], state["opt"], _ = step_fn(state["params"], state["opt"], batch)
+
+    p = profiled(torch, steps, LM_TRAIN_PROFILE_STEPS)
+    log_profile(f"profile of {LM_TRAIN_PROFILE_STEPS} train steps", p, top=10)
+    if p is not None:
+        for kind, t in sorted(train_kernel_kinds(p["rows"]).items(), key=lambda kv: -kv[1]):
+            log(f"    by kind: {kind}: {t / LM_TRAIN_PROFILE_STEPS:.2f} ms a step "
+                f"({100 * t / p['busy']:.1f}% of device time)")
+    # the CE (forward and backward, one microbatch's logits) and Adam over
+    # the whole tree, alone
+    mb = B // cfg.accum_steps
+    logits = torch.randn((mb, S, cfg.vocab), device=dev, dtype=torch.bfloat16, requires_grad=True)
+
+    def ce():
+        losses.next_token_ce(logits, batch["tokens"][:mb], batch["loss_mask"][:mb]).backward()
+
+    ce_ms = time_ms(torch, ce, iters=5, warmup=1)
+    del logits
+    acfg = optimizer.AdamConfig(lr=LM_TRAIN_LR)
+
+    def adam():
+        optimizer.adam_update(state["params"], state["opt"], state["params"], acfg)
+
+    adam_ms = time_ms(torch, adam, iters=3, warmup=1)
+    pa = profiled(torch, adam, 1)
+    adam_kernels = "not measured" if pa is None else f"{pa['ops']:.0f}"
+    n_leaves = sum(1 for _ in tensors(state["params"]))
+    wide = [t for t in tensors(state["params"]) if t.ndim >= 2]
+    cast_ms = time_ms(torch, lambda: [t.to(torch.bfloat16) for t in wide], iters=3, warmup=1)
+    log(f"  alone: next_token_ce forward + backward on ({mb}, {S}, {cfg.vocab}) bf16 logits "
+        f"{ce_ms:.2f} ms (x {cfg.accum_steps} microbatches a step); adam_update over {n_leaves} leaves "
+        f"({n_params} f32 params) {adam_ms:.2f} ms in {adam_kernels} device kernels; one f32 -> bf16 "
+        f"cast of the {len(wide)} matrices {cast_ms:.2f} ms ({smi})")
+
+    # (d) the trained masters as serving storage, decoded with K4
+    storage = model.to_storage(state.pop("params"))
+    del state, batch
+    torch.cuda.empty_cache()
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, LM_TRAIN_DECODE_PROMPT)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        logits, st = model.prefill(storage, {"tokens": prompts})
+    full = model.rehome_state(st, LM_TRAIN_DECODE_PROMPT + LM_TRAIN_DECODE_STEPS)
+    first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    del logits
+    # the first step's K4 calls at tinyllama's decode shape (a group of 8)
+    # against the plain version, and its logits against the plain path
+    first_step_gates(torch, model, storage, full, first, copy_state)
+    ops.reset_launches()
+    gen, _, tps = DecodeEngine(lm_decoder(model, use_kernel=True), storage).generate(
+        full, first, LM_TRAIN_DECODE_STEPS)
+    counts = dict(ops.launches)
+    want = L * LM_TRAIN_DECODE_STEPS * 2
+    check(storage["blocks"][0]["attn"]["wq"].dtype == torch.bfloat16
+          and counts.get("decode_attn") == want and sum(counts.values()) == want
+          and tuple(gen.shape) == (LM_TRAIN_DECODE_STEPS, B)
+          and bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+          f"(d) the trained masters as bf16 storage decode {LM_TRAIN_DECODE_STEPS} greedy steps through "
+          f"DecodeEngine with K4 ({counts}; {L} x {LM_TRAIN_DECODE_STEPS} x 2 = {want}), tokens in the "
+          f"vocabulary, {tps:.1f} tokens/s; first request {gen[:, 0].tolist()}")
+    log(f"[13] LM training phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts["decode_attn"]
+
+
 def kinds_phase(torch, dev, arrays):
     """Every other predictor kind at full width (its default config, ctx
     64), weights from a seed through a predictor artifact, on the pack's
@@ -1672,6 +1934,7 @@ def ptxas_entries(log):
 
 
 def main():
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         sys.exit("chip_smoke.py must run from the root of a checkout (src/repro_torch is missing)")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1748,6 +2011,11 @@ def main():
     serving_phase(torch, dev, pcfg, params, arrays)
     del params, arrays, traces
     families_phase(torch, dev)
+    ops.reset_launches()
+    k4_served = lm_train_phase(torch, dev, smi)
+    log(f"[13] K4 launches serving the trained model: {k4_served}")
+
+    log(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s ({smi})")
 
     for r in rows:
         r["launches"] = launches[r["name"]]

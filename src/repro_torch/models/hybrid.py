@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.lm import embed_scale, layer_list, rehome_into, to_storage, tree_from_numpy
+from repro_torch.models.lm import (embed_scale, layer_list, rehome_into, remat, to_storage,
+                                  tree_from_numpy)
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import ssm
 from repro_torch.nn.attention import KVCache
@@ -29,11 +30,12 @@ def _dtype(cfg):
     return getattr(torch, cfg.dtype)
 
 
-def init_hybrid(generator: torch.Generator, cfg, device: DeviceLike = None) -> dict:
+def init_hybrid(generator: torch.Generator, cfg, device: DeviceLike = None, masters=False) -> dict:
+    """Random weights, as `repro_torch.models.lm.init_lm` makes them."""
     dev = resolve_device(device)
     keys = split_keys(generator, cfg.n_layers + 2)
     gdev = generator.device
-    p = {"embed": {"w": to_storage(embed_init(keys[0], cfg.vocab, cfg.d_model), cfg, dev)}}
+    p = {"embed": {"w": to_storage(embed_init(keys[0], cfg.vocab, cfg.d_model), cfg, dev, masters)}}
     blocks = []
     for i in range(cfg.n_layers):
         k_mix, k_mlp = split_keys(keys[1 + i], 2)
@@ -46,19 +48,20 @@ def init_hybrid(generator: torch.Generator, cfg, device: DeviceLike = None) -> d
                 k_mix, cfg.d_model, cfg.rnn_width, cfg.rnn_heads, cfg.conv_width)
         lp["ln2"] = norm_params(cfg, cfg.d_model, gdev)
         lp["mlp"] = gated_mlp_params(k_mlp, cfg.d_model, cfg.d_ff)
-        blocks.append(to_storage(lp, cfg, dev))
+        blocks.append(to_storage(lp, cfg, dev, masters))
     p["blocks"] = blocks
     p["final_norm"] = norm_params(cfg, cfg.d_model, dev)
     return p
 
 
-def params_from_numpy(tree, cfg, device: DeviceLike = None) -> dict:
+def params_from_numpy(tree, cfg, device: DeviceLike = None, masters=False) -> dict:
     """The reference's ``init_hybrid`` params (``{"layer_i": ...}``
-    blocks) as the port's, on ``device``, in their storage dtypes."""
+    blocks) as the port's, on ``device``, in their storage dtypes (f32
+    with ``masters``)."""
     dev = resolve_device(device)
     out = {k: tree_from_numpy(v, dev) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [tree_from_numpy(lp, dev) for lp in layer_list(tree["blocks"], cfg.n_layers)]
-    return to_storage(out, cfg)
+    return to_storage(out, cfg, masters=masters)
 
 
 def _embed(params, cfg, tokens, dtype):
@@ -82,26 +85,38 @@ def _attn_seq(lp, x, positions, *, cfg, dtype):
     return attn_lib.attn_out(lp["attn"], ctx, dtype=dtype), (k, v)
 
 
+def _layer(lp, x, positions, *, i, cfg, dtype):
+    """Layer ``i`` over a whole sequence: (x, its decode state: (k, v) or a
+    RecurrentState)."""
+    h = norm_apply(cfg, lp["ln1"], x, dtype)
+    if cfg.is_attn_layer(i):
+        y, kv = _attn_seq(lp, h, positions, cfg=cfg, dtype=dtype)
+    else:
+        y, kv = ssm.recurrent_block(lp["rec"], h, n_heads=cfg.rnn_heads, dtype=dtype,
+                                    with_state=True)
+    x = x + y
+    h = norm_apply(cfg, lp["ln2"], x, dtype)
+    x = x + gated_mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
+    return x, kv
+
+
 def _layers_seq(params, cfg, tokens, layer_state=None):
     """The layer stack over a whole sequence: the final hidden states;
     ``layer_state(i, kv or RecurrentState)`` receives each layer's decode
-    state where given (prefill)."""
+    state where given (prefill, ``collect_kv``). Without it each layer is
+    a `remat` unit, as the reference checkpoints its layers but not with
+    ``collect_kv``."""
     dtype = _dtype(cfg)
     B, T = tokens.shape
     x = _embed(params, cfg, tokens, dtype)
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device)[None].expand(B, T)
     for i, lp in enumerate(params["blocks"]):
-        h = norm_apply(cfg, lp["ln1"], x, dtype)
-        if cfg.is_attn_layer(i):
-            y, kv = _attn_seq(lp, h, positions, cfg=cfg, dtype=dtype)
+        if layer_state is None:
+            x = remat(cfg, lambda lp, x, i=i: _layer(lp, x, positions, i=i, cfg=cfg, dtype=dtype)[0],
+                      lp, x)
         else:
-            y, kv = ssm.recurrent_block(lp["rec"], h, n_heads=cfg.rnn_heads, dtype=dtype,
-                                        with_state=True)
-        if layer_state is not None:
+            x, kv = _layer(lp, x, positions, i=i, cfg=cfg, dtype=dtype)
             layer_state(i, kv)
-        x = x + y
-        h = norm_apply(cfg, lp["ln2"], x, dtype)
-        x = x + gated_mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
     return x
 
 
@@ -111,10 +126,10 @@ def forward(params, cfg, batch, *, collect_kv=False):
     kvs = {}
 
     def keep(i, kv):
-        if collect_kv and cfg.is_attn_layer(i):
+        if cfg.is_attn_layer(i):
             kvs[f"layer_{i}"] = kv
 
-    x = _layers_seq(params, cfg, batch["tokens"], keep)
+    x = _layers_seq(params, cfg, batch["tokens"], keep if collect_kv else None)
     return _logits(params, cfg, x, _dtype(cfg)), ({"kv": kvs} if collect_kv else {})
 
 

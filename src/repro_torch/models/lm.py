@@ -7,11 +7,21 @@ layer loop is a Python loop over it.
 
 **Storage dtypes.** The reference keeps f32 masters and casts each weight
 to ``cfg.dtype`` at every use; at full width that would move the f32
-weights through memory on every decode step. The port casts each tensor
-once, when it is made or loaded (`to_storage`), to the dtype its use site
-casts it to. The cast is deterministic, so the weights each use sees are
-bit-identical to the reference's. The rule is shared by every family
+weights through memory on every decode step. For serving, the port casts
+each tensor once, when it is made or loaded (`to_storage`), to the dtype
+its use site casts it to. The cast is deterministic, so the weights each
+use sees are bit-identical to the reference's. Training keeps the
+reference's f32 masters instead (``masters=True`` of every family's
+``init`` and ``params_from_numpy``): each use casts them, as in the
+reference, and their gradients come back in f32; `to_storage` turns
+trained masters into serving storage. The reference's
+``cfg.pre_cast_params`` (cast the blocks once before the layer scan)
+changes only when that cast happens, not its result, so the port takes it
+and casts at each use either way. The rule is shared by every family
 (`repro_torch.models.{hybrid,whisper,rwkv}` call it too).
+
+**Remat.** Where the reference wraps a layer in ``jax.checkpoint``
+(``cfg.remat == "full"``), the port runs it through `remat`.
 
 **KV cache.** `decode_step` writes the new token's k/v into the cache
 tensors of ``state`` in place and returns a state that shares them. SWA
@@ -24,8 +34,10 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._tree import tree_leaves
 from repro_torch.nn import transformer as tfm
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.init import dense_init, embed_init, split_keys
@@ -45,19 +57,35 @@ def _dtype(cfg):
 F32_SUBTREES = frozenset({"router", "w_input_gate", "w_rec_gate", "decay_lora"})
 
 
-def to_storage(params, cfg, device=None, _f32=False):
+def to_storage(params, cfg, device=None, masters=False, _f32=False):
     """Each leaf in the dtype its use site computes with (see the module
     docstring), on ``device`` (default: where it is): a leaf of 2 or more
     dimensions in ``cfg.dtype`` unless it lies under a key of
     `F32_SUBTREES`; every 1-D leaf (norm scales, biases, decays, lerp
-    factors: used in f32, or cast from f32 at their use) in f32."""
+    factors: used in f32, or cast from f32 at their use) in f32. With
+    ``masters`` every leaf stays f32 (training). The result is detached:
+    trained masters come out as serving params that need no grad."""
     if isinstance(params, dict):
-        return {k: to_storage(v, cfg, device, _f32 or k in F32_SUBTREES)
+        return {k: to_storage(v, cfg, device, masters, _f32 or k in F32_SUBTREES)
                 for k, v in params.items()}
     if isinstance(params, list):
-        return [to_storage(v, cfg, device, _f32) for v in params]
-    wide = params.ndim >= 2 and not _f32
-    return params.to(device=device, dtype=_dtype(cfg) if wide else torch.float32)
+        return [to_storage(v, cfg, device, masters, _f32) for v in params]
+    wide = params.ndim >= 2 and not (_f32 or masters)
+    return params.detach().to(device=device, dtype=_dtype(cfg) if wide else torch.float32)
+
+
+def remat(cfg, fn, lp, *args):
+    """``fn(lp, *args)`` for one layer whose params are ``lp``, its
+    activations recomputed in the backward pass (``torch.utils.checkpoint``)
+    where the reference wraps the layer in ``jax.checkpoint``: with
+    ``cfg.remat == "full"``, while autograd records and ``lp`` requires
+    grad. Serving (no grad, or storage params that need none) runs the
+    layer as it is. No layer draws random numbers, so no RNG state is
+    kept for the recompute."""
+    if (cfg.remat == "full" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tree_leaves(lp))):
+        return checkpoint(fn, lp, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(lp, *args)
 
 
 def tree_from_numpy(tree, device):
@@ -70,7 +98,12 @@ def tree_from_numpy(tree, device):
 def layer_list(blocks, n_layers: int, what: str = "blocks"):
     """The reference's per-layer params as a list of ``n_layers`` trees:
     from ``{"layer_i": ...}`` blocks, or from stacked blocks
-    (``scan_layers=True``: every leaf with a leading layer axis)."""
+    (``scan_layers=True``: every leaf with a leading layer axis); the
+    port's own list (or the tuple a checkpoint restores) as it is."""
+    if isinstance(blocks, (list, tuple)):
+        if len(blocks) != n_layers:
+            raise ValueError(f"{len(blocks)} {what}, config has {n_layers}")
+        return list(blocks)
     if "layer_0" in blocks:
         return [blocks[f"layer_{i}"] for i in range(n_layers)]
 
@@ -90,33 +123,39 @@ def layer_list(blocks, n_layers: int, what: str = "blocks"):
 # init
 # ---------------------------------------------------------------------------
 
-def init_lm(generator: torch.Generator, cfg, device: DeviceLike = None) -> dict:
+def init_lm(generator: torch.Generator, cfg, device: DeviceLike = None, masters=False) -> dict:
     """Random weights from ``generator`` on ``device``. Each tensor is
     drawn in f32 on the generator's device, as the reference's masters
-    are, then cast to its storage dtype and moved (a CUDA generator
-    initialises a full-width model on the card without a host trip)."""
+    are, then cast to its storage dtype (kept f32 with ``masters``) and
+    moved (a CUDA generator initialises a full-width model on the card
+    without a host trip)."""
     dev = resolve_device(device)
     keys = split_keys(generator, cfg.n_layers + 3)
-    p = {"embed": {"w": to_storage(embed_init(keys[0], cfg.vocab, cfg.d_model), cfg, dev)}}
+
+    def store(t):
+        return to_storage(t, cfg, dev, masters)
+
+    p = {"embed": {"w": store(embed_init(keys[0], cfg.vocab, cfg.d_model))}}
     if not cfg.tie_embeddings:
-        p["unembed"] = {"w": to_storage(embed_init(keys[1], cfg.vocab, cfg.d_model), cfg, dev)}
+        p["unembed"] = {"w": store(embed_init(keys[1], cfg.vocab, cfg.d_model))}
     if cfg.frontend == "vision_stub":
-        p["frontend"] = {"w": to_storage(dense_init(keys[2], cfg.frontend_dim, cfg.d_model), cfg, dev)}
-    p["blocks"] = [to_storage(tfm.block_params(keys[3 + i], cfg), cfg, dev)
-                   for i in range(cfg.n_layers)]
+        p["frontend"] = {"w": store(dense_init(keys[2], cfg.frontend_dim, cfg.d_model))}
+    p["blocks"] = [store(tfm.block_params(keys[3 + i], cfg)) for i in range(cfg.n_layers)]
     p["final_norm"] = tfm.norm_params(cfg, cfg.d_model, dev)
     return p
 
 
-def params_from_numpy(tree, cfg, device: DeviceLike = None) -> dict:
+def params_from_numpy(tree, cfg, device: DeviceLike = None, masters=False) -> dict:
     """The reference's ``init_lm`` params (a nested dict of numpy or JAX
-    arrays) as the port's params on ``device``, in their storage dtypes.
-    Takes the stacked ``blocks`` of ``scan_layers=True`` (every leaf with a
-    leading layer axis) as well as ``{"layer_i": ...}`` blocks."""
+    arrays) as the port's params on ``device``, in their storage dtypes
+    (f32 with ``masters``). Takes the stacked ``blocks`` of
+    ``scan_layers=True`` (every leaf with a leading layer axis) as well as
+    ``{"layer_i": ...}`` blocks, and a param-shaped tree of Adam's (``m``,
+    ``v``) with ``masters``."""
     dev = resolve_device(device)
     out = {k: tree_from_numpy(v, dev) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [tree_from_numpy(lp, dev) for lp in layer_list(tree["blocks"], cfg.n_layers)]
-    return to_storage(out, cfg)
+    return to_storage(out, cfg, masters=masters)
 
 
 # ---------------------------------------------------------------------------
@@ -182,8 +221,9 @@ def forward(params, cfg, batch, *, collect_kv=False, logits_mode="all"):
     thetas = tfm.layer_thetas(cfg)
     ks, vs, losses, dropped = [], [], [], []
     for lp, window, theta in zip(params["blocks"], windows, thetas):
-        x, aux = tfm.block_seq(lp, x, positions, cfg=cfg, window=window, theta=theta,
-                               dtype=dtype, return_kv=collect_kv)
+        x, aux = remat(cfg, lambda lp, x, window=window, theta=theta: tfm.block_seq(
+            lp, x, positions, cfg=cfg, window=window, theta=theta, dtype=dtype,
+            return_kv=collect_kv), lp, x)
         if collect_kv:
             ks.append(aux["kv"][0])
             vs.append(aux["kv"][1])

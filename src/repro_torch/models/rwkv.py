@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.lm import layer_list, rehome_into, to_storage, tree_from_numpy
+from repro_torch.models.lm import layer_list, rehome_into, remat, to_storage, tree_from_numpy
 from repro_torch.nn import ssm
 from repro_torch.nn.init import embed_init, split_keys
 from repro_torch.nn.layers import embed as embed_lookup
@@ -23,13 +23,14 @@ def _dtype(cfg):
     return getattr(torch, cfg.dtype)
 
 
-def init_rwkv(generator: torch.Generator, cfg, device: DeviceLike = None) -> dict:
+def init_rwkv(generator: torch.Generator, cfg, device: DeviceLike = None, masters=False) -> dict:
+    """Random weights, as `repro_torch.models.lm.init_lm` makes them."""
     dev = resolve_device(device)
     keys = split_keys(generator, cfg.n_layers + 4)
     gdev = generator.device
     p = {
-        "embed": {"w": to_storage(embed_init(keys[0], cfg.vocab, cfg.d_model), cfg, dev)},
-        "unembed": {"w": to_storage(embed_init(keys[1], cfg.vocab, cfg.d_model), cfg, dev)},
+        "embed": {"w": to_storage(embed_init(keys[0], cfg.vocab, cfg.d_model), cfg, dev, masters)},
+        "unembed": {"w": to_storage(embed_init(keys[1], cfg.vocab, cfg.d_model), cfg, dev, masters)},
         "ln0": layernorm_params(cfg.d_model, device=dev),
     }
     blocks = []
@@ -40,24 +41,26 @@ def init_rwkv(generator: torch.Generator, cfg, device: DeviceLike = None) -> dic
             "tm": ssm.rwkv_timemix_params(k_tm, cfg.d_model, cfg.rnn_heads),
             "ln2": layernorm_params(cfg.d_model, device=gdev),
             "cm": ssm.rwkv_channelmix_params(k_cm, cfg.d_model, cfg.d_ff),
-        }, cfg, dev))
+        }, cfg, dev, masters))
     p["blocks"] = blocks
     p["final_norm"] = layernorm_params(cfg.d_model, device=dev)
     return p
 
 
-def params_from_numpy(tree, cfg, device: DeviceLike = None) -> dict:
+def params_from_numpy(tree, cfg, device: DeviceLike = None, masters=False) -> dict:
     """The reference's ``init_rwkv`` params (stacked blocks) as the port's,
-    on ``device``, in their storage dtypes."""
+    on ``device``, in their storage dtypes (f32 with ``masters``)."""
     dev = resolve_device(device)
     out = {k: tree_from_numpy(v, dev) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [tree_from_numpy(lp, dev) for lp in layer_list(tree["blocks"], cfg.n_layers)]
-    return to_storage(out, cfg)
+    return to_storage(out, cfg, masters=masters)
 
 
 def _layers_seq(params, cfg, tokens):
     """The layer stack over a whole sequence from a zero state: (hidden
-    states, per-layer final states {"wkv", "x_tm", "x_cm"} stacked)."""
+    states, per-layer final states {"wkv", "x_tm", "x_cm"} stacked). Each
+    layer is a `remat` unit (the reference checkpoints its forward's and
+    its prefill's layers)."""
     dtype = _dtype(cfg)
     B = tokens.shape[0]
     H, D = cfg.rnn_heads, cfg.d_model
@@ -66,14 +69,18 @@ def _layers_seq(params, cfg, tokens):
     x = layernorm(params["ln0"], x, dtype=dtype)
     zeros_x = torch.zeros((B, D), dtype=dtype, device=tokens.device)
     state0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=tokens.device)
-    states = {"wkv": [], "x_tm": [], "x_cm": []}
-    for lp in params["blocks"]:
+
+    def layer(lp, x):
         h = layernorm(lp["ln1"], x, dtype=dtype)
         y, x_tm, wkv = ssm.rwkv_timemix(lp["tm"], h, zeros_x, state0, n_heads=H, dtype=dtype)
         x = x + y
         h = layernorm(lp["ln2"], x, dtype=dtype)
         y, x_cm = ssm.rwkv_channelmix(lp["cm"], h, zeros_x, dtype=dtype)
-        x = x + y
+        return x + y, wkv, x_tm, x_cm
+
+    states = {"wkv": [], "x_tm": [], "x_cm": []}
+    for lp in params["blocks"]:
+        x, wkv, x_tm, x_cm = remat(cfg, layer, lp, x)
         for name, t in (("wkv", wkv), ("x_tm", x_tm), ("x_cm", x_cm)):
             states[name].append(t)
     return x, {name: torch.stack(ts) for name, ts in states.items()}

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.lm import layer_list, rehome_into, to_storage, tree_from_numpy
+from repro_torch.models.lm import layer_list, rehome_into, remat, to_storage, tree_from_numpy
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.init import embed_init, split_keys
@@ -64,30 +64,33 @@ def _dec_layer_params(generator, cfg):
     }
 
 
-def init_encdec(generator: torch.Generator, cfg, device: DeviceLike = None) -> dict:
+def init_encdec(generator: torch.Generator, cfg, device: DeviceLike = None, masters=False) -> dict:
+    """Random weights, as `repro_torch.models.lm.init_lm` makes them."""
     dev = resolve_device(device)
     keys = split_keys(generator, 4)
     return {
-        "embed": {"w": to_storage(embed_init(keys[0], cfg.padded_vocab, cfg.d_model), cfg, dev)},
-        "encoder": [to_storage(_enc_layer_params(k, cfg), cfg, dev)
+        "embed": {"w": to_storage(embed_init(keys[0], cfg.padded_vocab, cfg.d_model), cfg, dev,
+                                  masters)},
+        "encoder": [to_storage(_enc_layer_params(k, cfg), cfg, dev, masters)
                     for k in split_keys(keys[1], cfg.n_enc_layers)],
-        "decoder": [to_storage(_dec_layer_params(k, cfg), cfg, dev)
+        "decoder": [to_storage(_dec_layer_params(k, cfg), cfg, dev, masters)
                     for k in split_keys(keys[2], cfg.n_layers)],
         "enc_ln": layernorm_params(cfg.d_model, device=dev),
         "dec_ln": layernorm_params(cfg.d_model, device=dev),
     }
 
 
-def params_from_numpy(tree, cfg, device: DeviceLike = None) -> dict:
+def params_from_numpy(tree, cfg, device: DeviceLike = None, masters=False) -> dict:
     """The reference's ``init_encdec`` params (stacked encoder and decoder
-    layers) as the port's, on ``device``, in their storage dtypes."""
+    layers) as the port's, on ``device``, in their storage dtypes (f32
+    with ``masters``)."""
     dev = resolve_device(device)
     out = {k: tree_from_numpy(v, dev) for k, v in tree.items() if k not in ("encoder", "decoder")}
     out["encoder"] = [tree_from_numpy(lp, dev)
                       for lp in layer_list(tree["encoder"], cfg.n_enc_layers, "encoder layers")]
     out["decoder"] = [tree_from_numpy(lp, dev)
                       for lp in layer_list(tree["decoder"], cfg.n_layers, "decoder layers")]
-    return to_storage(out, cfg)
+    return to_storage(out, cfg, masters=masters)
 
 
 def _self_attn(lp, x, mask, *, cfg, dtype):
@@ -117,16 +120,21 @@ def _logits(params, cfg, x, dtype):
 
 
 def encode(params, cfg, frames):
-    """frames: (B, enc_seq, d_model) stub embeddings -> encoder output."""
+    """frames: (B, enc_seq, d_model) stub embeddings -> encoder output.
+    Each layer is a `remat` unit, as the reference checkpoints it."""
     dtype = _dtype(cfg)
     S = frames.shape[1]
     x = frames.to(dtype) + sinusoid_table(S, cfg.d_model, frames.device).to(dtype)[None]
-    for lp in params["encoder"]:
+
+    def layer(lp, x):
         h = layernorm(lp["ln1"], x, dtype=dtype)
         y, _ = _self_attn(lp["attn"], h, None, cfg=cfg, dtype=dtype)
         x = x + y
         h = layernorm(lp["ln2"], x, dtype=dtype)
-        x = x + mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
+        return x + mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
+
+    for lp in params["encoder"]:
+        x = remat(cfg, layer, lp, x)
     return layernorm(params["enc_ln"], x, dtype=dtype)
 
 
@@ -134,7 +142,8 @@ def forward(params, cfg, batch, *, collect_kv=False, logits_mode="all"):
     """Teacher-forced decode over the full target sequence. batch:
     {"tokens": (B, T), "frames": (B, enc_seq, d_model)}. Returns (logits,
     aux); aux {"kv": (L,B,T,KV,hd) x2, "cross": (L,B,enc_seq,KV,hd) x2}
-    with collect_kv."""
+    with collect_kv. Each decoder layer is a `remat` unit but with
+    collect_kv, as in the reference."""
     dtype = _dtype(cfg)
     tokens = batch["tokens"]
     T = tokens.shape[1]
@@ -143,8 +152,8 @@ def forward(params, cfg, batch, *, collect_kv=False, logits_mode="all"):
     x = x + sinusoid_table(T, cfg.d_model, tokens.device).to(dtype)[None]
     t_ar = torch.arange(T, dtype=torch.int32, device=tokens.device)
     mask = attn_lib.make_mask(t_ar, t_ar, None)
-    ks, vs, cks, cvs = [], [], [], []
-    for lp in params["decoder"]:
+
+    def layer(lp, x, enc_out):
         h = layernorm(lp["ln1"], x, dtype=dtype)
         y, (k, v) = _self_attn(lp["self_attn"], h, mask, cfg=cfg, dtype=dtype)
         x = x + y
@@ -152,10 +161,16 @@ def forward(params, cfg, batch, *, collect_kv=False, logits_mode="all"):
         ck, cv = _cross_kv(lp["cross_attn"], enc_out, cfg=cfg, dtype=dtype)
         x = x + _cross_attn(lp["cross_attn"], h, ck, cv, cfg=cfg, dtype=dtype)
         h = layernorm(lp["ln2"], x, dtype=dtype)
-        x = x + mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
+        return x + mlp(lp["mlp"], h, act=cfg.act, dtype=dtype), (k, v, ck, cv)
+
+    ks, vs, cks, cvs = [], [], [], []
+    for lp in params["decoder"]:
         if collect_kv:
-            for acc, t in zip((ks, vs, cks, cvs), (k, v, ck, cv)):
+            x, kvs = layer(lp, x, enc_out)
+            for acc, t in zip((ks, vs, cks, cvs), kvs):
                 acc.append(t)
+        else:
+            x = remat(cfg, lambda lp, x, enc_out: layer(lp, x, enc_out)[0], lp, x, enc_out)
     if logits_mode == "last":
         x = x[:, -1:, :]
     aux = {}

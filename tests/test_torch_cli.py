@@ -22,7 +22,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro.cli import main as ref_main  # noqa: E402
+from repro.serving.compile_cache import global_cache as ref_global_cache  # noqa: E402
 from repro_torch.cli import build_parser, main  # noqa: E402
+from repro_torch.serving.compile_cache import global_cache  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 TIME_KEYS = {"seconds", "first_call_seconds", "throughput_ips", "compile_seconds",
@@ -72,6 +74,11 @@ def test_subcommand_json_matches_reference(tmp_path, capsys, monkeypatch, argv, 
     traces, lint findings)."""
     monkeypatch.chdir(REPO)  # lint's default paths are the repo's src/
     extra = [] if argv[0] == "lint" else ["--cache-dir", str(tmp_path / "tr")]
+    # both packages start from a cold process-wide program cache, so each
+    # result's "cache" delta does not depend on what tests ran earlier in
+    # this worker process
+    ref_global_cache().clear()
+    global_cache("cpu").clear()
     want = _run(capsys, ref_main, argv + extra)
     got = _run(capsys, main, ["--device", "cpu"] + argv + extra)
     assert _key_tree(got) == _key_tree(want)

@@ -35,7 +35,8 @@ from repro_torch.serving import faults as port_faults  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "examples" / "serve_lm_torch.py"]
+    REPO / "chip_smoke.py", REPO / "examples" / "serve_lm_torch.py",
+    REPO / "examples" / "train_lm_torch.py"]
 FORBIDDEN = ("jax", "repro")
 
 
@@ -74,6 +75,9 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "import repro_torch.serving.registry, repro_torch.serving.service\n"
         "import repro_torch.serving.http, repro_torch.serving.router\n"
         "import repro_torch.serving.fleet, repro_torch.serving.chaos, repro_torch.analysis\n"
+        "import repro_torch.training.losses, repro_torch.training.train_loop\n"
+        "import repro_torch.training.compression, repro_torch.data.pipeline\n"
+        "import repro_torch.runtime.straggler, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -206,7 +210,8 @@ def test_same_fault_plan_gives_the_same_schedule_in_both_packages(spec):
 
 # the framework-free modules the port keeps as copies: (reference, port)
 COPIES = [("core/results.py", "core/results.py"), ("serving/backoff.py", "serving/backoff.py"),
-          ("serving/telemetry.py", "serving/telemetry.py")] + [
+          ("serving/telemetry.py", "serving/telemetry.py"), ("data/pipeline.py", "data/pipeline.py"),
+          ("runtime/straggler.py", "runtime/straggler.py")] + [
     (f"analysis/{p.name}", f"analysis/{p.name}")
     for p in sorted((REPO / "src" / "repro" / "analysis").glob("*.py"))]
 
@@ -231,7 +236,7 @@ def test_copy_is_the_reference_apart_from_imports(ref, port):
     got = (REPO / "src" / "repro_torch" / port).read_text()
     assert _without_imports(got) == _without_imports(want)
     assert len(got.splitlines()) == len(want.splitlines())
-    assert len(COPIES) == 9
+    assert len(COPIES) == 11
 
 
 def _lint(analysis, paths, cwd):
