@@ -69,7 +69,17 @@ launches each makes:
   a profile of 3 more steps), and its trained masters, cast to serving
   storage, decoded through ``DecodeEngine`` with K4 (every K4 call of the
   first step held to its plain version at tinyllama's decode shape, and
-  the step's logits to the plain path).
+  the step's logits to the plain path);
+- the lane mesh (phase [14]): the [5] pack through ``SimNet(artifact,
+  mesh=make_host_mesh(), use_kernel=True)`` on a one-rank mesh (totals
+  and K1 launches equal [5]'s, the program keyed by the mesh's
+  fingerprint, a cache miss beside the unsharded program, its speed
+  beside the unsharded engine's in turns), then two ranks on the one card
+  (this process the controller, a follower started with the spawn method
+  on a gloo file-store group, K1 on each rank's half of the lanes; the
+  totals equal one rank's on the same lanes, and teacher-forced one rank's
+  on all of them), and ``examples/quickstart_torch.py --device cuda`` as a
+  child process (its DES CPIs held to the DES run on the host).
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -127,6 +137,10 @@ FLEET_REPLICAS = 2
 # catch lasts 600 s
 CHAOS_WATCHDOG_S = 30
 ONESHOT_LANES, CHUNK_CAPS = 16, (256, 512, 1024)
+# phase [14]: the lane mesh. Rounds of (unsharded, mesh, mesh, unsharded)
+# timed runs of the [5] pack; the bound of every wait of the two-rank
+# group and of the quickstart child
+MESH_TURNS, MESH_TIMEOUT_S = 3, 300
 LM_ARCH = "gemma3-4b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 8, 2048, 64  # requests, prompt tokens, decode steps
 LM_CACHE = 2112  # prompt + steps
@@ -1909,6 +1923,191 @@ def serving_phase(torch, dev, pcfg, params, arrays):
             f"{warm.first_call_seconds:.3f} s, throughput_ips {warm.throughput_ips:.1f}")
     check(len(set(firsts.values())) == 1, f"the same totals at every chunk {firsts}")
 
+def cuda_flags(torch):
+    """Full f32 GEMMs and reductions, in every process of the script."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def mesh_follower(rank, world, init, queue):
+    """Phase [14](b)'s second rank, started with the spawn method: joins the
+    gloo group, follows the controller on cuda:0 (K1 on its half of the
+    lanes), then reports the requests it served and its K1 launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.simnet_engine import run_follower
+
+    cuda_flags(torch)
+    served = run_follower(rank, world, init, device_type="cuda", device="cuda:0",
+                          timeout_s=MESH_TIMEOUT_S)
+    queue.put({"served": served, "launches": dict(ops.launches)})
+
+
+def mesh_phase(torch, dev, pcfg, params, arrays, ring, k1_launches):
+    """The lane mesh on the card: (a) the [5] pack through `SimNet(art,
+    mesh=make_host_mesh(), use_kernel=True)` on a one-rank mesh, against
+    [5]'s totals and K1 launches and beside the unsharded engine in turns;
+    (b) two ranks on the one card (this process the controller, one
+    follower process), each running K1 on its half of the lanes, held to
+    one rank on the same lanes; (c)
+    ``examples/quickstart_torch.py`` as a child process."""
+    import multiprocessing
+    import os
+    import statistics
+    from datetime import timedelta
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import PredictorArtifact
+    from repro_torch.core import api
+    from repro_torch.core.session import SimNet
+    from repro_torch.core.simulator import SimConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving.compile_cache import global_cache, mesh_fingerprint
+    from repro_torch.serving.simnet_engine import SimNetEngine
+
+    t_phase = time.perf_counter()
+    log(f"[14] the lane mesh: {len(arrays)} workloads x {PRED_LANES} lanes x {PRED_STEPS} steps, "
+        "c3 at full width, ring, f32, use_kernel=True")
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    # (b)'s follower starts now: it reaches the card while (a) runs, then
+    # waits at the rendezvous of the two-rank group
+    init = f"file://{work.name}/store"
+    mp = multiprocessing.get_context("spawn")
+    queue = mp.Queue()
+    follower = mp.Process(target=mesh_follower, args=(1, 2, init, queue), daemon=True)
+    follower.start()
+    quickstart = None
+    try:
+        art_dir = Path(work.name) / "c3"
+        PredictorArtifact(params, pcfg, SimConfig(ctx_len=pcfg.ctx_len), {"seed": SEED}).save(art_dir)
+        art = PredictorArtifact.load(art_dir, device=dev)
+
+        # -- (a) a one-rank mesh: make_host_mesh starts its own group
+        mesh = make_host_mesh()
+        check(dist.get_world_size() == 1 and tuple(mesh.mesh.shape) == (1, 1),
+              f"make_host_mesh() on cuda: a one-rank (data, model) mesh ({dist.get_backend()})")
+        cache = global_cache(dev)
+        before = cache.stats()["n_executables"]
+        ops.reset_launches()
+        with SimNet(art, mesh=mesh, use_kernel=True, chunk=PRED_STEPS, device=dev) as sn:
+            res = sn.simulate_many(arrays, n_lanes=PRED_LANES, timeit=True)
+            key = sn.engine.executable_key(PRED_LANES * len(arrays), PRED_STEPS)
+        counts = dict(ops.launches)
+        got = np.asarray([w.total_cycles for w in res])
+        log(f"  SimNet(mesh=make_host_mesh()): throughput_ips={res.throughput_ips:.1f} "
+            f"seconds={res.seconds:.4f} first_call_seconds={res.first_call_seconds:.3f} "
+            f"cache={res.cache} launches={counts}")
+        log(f"  [5] unsharded: throughput_ips={ring['throughput_ips']:.1f} "
+            f"first_call_seconds={ring['first_call_seconds']:.3f}")
+        check(np.array_equal(got, ring["workload_cycles"]),
+              "one-rank mesh totals equal [5]'s unsharded totals bit for bit")
+        check(counts["fused_step"] == k1_launches and counts["cnn_trunk"] == 0,
+              f"K1 launched {counts['fused_step']} times on the mesh path, as in [5] ({k1_launches})")
+        check(key.mesh == mesh_fingerprint(mesh) and key.mesh is not None,
+              f"the program key's mesh is the mesh's fingerprint {key.mesh}")
+        check(res.cache["misses"] == 1 and cache.stats()["n_executables"] == before + 1,
+              "the mesh is a cache miss beside [5]'s unsharded program of the same shape")
+        # the added cost of the mesh path: the same pack, unsharded and
+        # one-rank mesh engines in turns (warm programs)
+        engines = {"unsharded": SimNetEngine(art.params, pcfg, art.sim_cfg, use_kernel=True, device=dev),
+                   "mesh": SimNetEngine(art.params, pcfg, art.sim_cfg, mesh=mesh, use_kernel=True,
+                                        device=dev)}
+        ips = {name: [] for name in engines}
+        for name in ("unsharded", "mesh", "mesh", "unsharded") * MESH_TURNS:
+            r = engines[name].simulate_many(arrays, n_lanes=PRED_LANES, chunk=PRED_STEPS, timeit=True)
+            check(np.array_equal(r["workload_cycles"], ring["workload_cycles"]), f"{name} totals equal [5]'s")
+            ips[name].append(r["throughput_ips"])
+        med = {name: statistics.median(v) for name, v in ips.items()}
+        log(f"  in turns ({2 * MESH_TURNS} runs each): throughput_ips median unsharded "
+            f"{med['unsharded']:.1f}, one-rank mesh {med['mesh']:.1f} "
+            f"({100 * (med['mesh'] / med['unsharded'] - 1):+.2f}%); runs {ips}")
+        dist.destroy_process_group()
+
+        # -- (c) starts beside (b): quickstart_torch.py on the card
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        quickstart = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / "quickstart_torch.py"), "--device", "cuda"],
+            cwd=work.name, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        t_quick = time.perf_counter()
+
+        # -- (b) two ranks on the one card, K1 on each
+        t0 = time.perf_counter()
+        dist.init_process_group("gloo", init_method=init, rank=0, world_size=2,
+                                timeout=timedelta(seconds=MESH_TIMEOUT_S))
+        mesh2 = make_host_mesh()
+        log(f"  two-rank group and mesh {tuple(mesh2.mesh.shape)} up in "
+            f"{time.perf_counter() - t0:.1f} s (the follower started with the phase)")
+        weight_bytes = sum(t.numel() * t.element_size() for t in tensors(art.params))
+        eng = SimNetEngine(art.params, pcfg, art.sim_cfg, mesh=mesh2, use_kernel=True, device=dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        two = eng.simulate_many(arrays, n_lanes=PRED_LANES, chunk=PRED_STEPS, timeit=True)
+        wall = time.perf_counter() - t0
+        mine = dict(ops.launches)
+        tf = {"two ranks": SimNetEngine(sim_cfg=art.sim_cfg, mesh=mesh2, device=dev),
+              "one rank": SimNetEngine(sim_cfg=art.sim_cfg, device=dev)}
+        tf = {k: e.simulate_many(arrays, n_lanes=PRED_LANES, chunk=PRED_STEPS) for k, e in tf.items()}
+        eng.close()
+        theirs = queue.get(timeout=MESH_TIMEOUT_S)
+        follower.join(60)
+        dist.destroy_process_group()
+        log(f"  two ranks on {dev}: wall {wall:.3f} s, throughput_ips={two['throughput_ips']:.1f} "
+            f"first_call_seconds={two['first_call_seconds']:.3f} (no speed claimed: two contexts "
+            f"share one card); weights sent a request {weight_bytes} bytes")
+        log(f"  K1 launches: rank 0 {mine['fused_step']}, rank 1 {theirs['launches']['fused_step']} "
+            f"({theirs['served']} requests served)")
+        check(mine["fused_step"] == theirs["launches"]["fused_step"] == k1_launches
+              and follower.exitcode == 0 and theirs["served"] == 2,
+              "each rank launched K1 once a step of each pass on its half of the lanes")
+        check(np.array_equal(tf["two ranks"]["workload_cycles"], tf["one rank"]["workload_cycles"])
+              and np.array_equal(tf["two ranks"]["workload_overflow"], tf["one rank"]["workload_overflow"]),
+              "teacher-forced: two ranks' totals equal one rank's bit for bit")
+        # cuBLAS picks its f32 GEMM algorithm (split-K) by the row count, so
+        # the FC head of 512 lanes need not give the bits of 1024 lanes'
+        # rows: each rank's totals are held to one rank on the same lanes
+        halves = [SimNetEngine(art.params, pcfg, art.sim_cfg, use_kernel=True, device=dev).simulate_many(
+            part, n_lanes=PRED_LANES, chunk=PRED_STEPS) for part in (arrays[:4], arrays[4:])]
+        check(len(arrays) == 8 and np.array_equal(
+            two["workload_cycles"], np.concatenate([h["workload_cycles"] for h in halves])),
+            f"two ranks' totals equal one rank's on each rank's {4 * PRED_LANES} lanes (workloads 0-3, 4-7) "
+            "bit for bit")
+        rel = np.abs(two["workload_cycles"] - got) / got
+        log(f"  two ranks vs the one-rank mesh's 1024 lanes: {two['workload_cycles'].tolist()} vs "
+            f"{got.tolist()}, max rel diff {rel.max():.3e}")
+        check(rel.max() < PRED_RTOL, f"two ranks within {PRED_RTOL} of the one-rank mesh")
+
+        # -- (c) its output, and its DES CPIs against the DES on this host
+        out, err = quickstart.communicate(timeout=MESH_TIMEOUT_S)
+        log(f"  examples/quickstart_torch.py --device cuda: exit {quickstart.returncode} in "
+            f"{time.perf_counter() - t_quick:.1f} s")
+        for line in out.splitlines():
+            log(f"    | {line}")
+        check(quickstart.returncode == 0, f"quickstart_torch.py ran on the card ({err[-2000:]})")
+        want = [f"{t.name}: {t.n} instructions, CPI {t.cpi:.3f}"
+                for t in api.generate_traces(["mlb_mixed", "mlb_branchy"], 20000)]
+        held = api.generate_traces(["sim_loop"], 10000)[0]
+        sim_cpi = re.search(r"DES CPI ([\d.]+) vs SimNet CPI ([\d.]+)", out)
+        check(all(w in out for w in want) and sim_cpi is not None
+              and sim_cpi.group(1) == f"{held.cpi:.3f}" and np.isfinite(float(sim_cpi.group(2))),
+              "quickstart's DES CPIs equal the DES run on the host")
+    finally:
+        if quickstart is not None and quickstart.poll() is None:
+            quickstart.kill()
+            quickstart.communicate()
+        if follower.is_alive():
+            follower.kill()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        work.cleanup()
+    log(f"[14] lane mesh phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def ptxas_entries(log):
     """Per kernel entry in nvcc's -Xptxas -v output: registers, static shared
     memory, stack frame and spills (stores, loads) in bytes."""
@@ -1942,9 +2141,7 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cuda_flags(torch)
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
 
@@ -1998,6 +2195,7 @@ def main():
     rows += conv_decode_kernel_phase(torch, dev, params, x)
     teacher_forced_phase(torch, dev)
     routes, launches, traces, arrays = predicted_phase(torch, dev, pcfg, params)
+    ring = routes["ring+fused_step"][1]
     program_phase(torch, dev, routes, arrays, pcfg)
     launches["conv2s"] = conv2s_path_phase(torch, params, x)
     profile_phase(torch, dev, routes["ring+fused_step"][0], arrays)
@@ -2009,11 +2207,12 @@ def main():
     kinds_phase(torch, dev, arrays)
     training_phase(torch, dev, traces, arrays)
     serving_phase(torch, dev, pcfg, params, arrays)
-    del params, arrays, traces
+    del traces
     families_phase(torch, dev)
     ops.reset_launches()
     k4_served = lm_train_phase(torch, dev, smi)
     log(f"[13] K4 launches serving the trained model: {k4_served}")
+    mesh_phase(torch, dev, pcfg, params, arrays, ring, launches["fused_step"])
 
     log(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s ({smi})")
 

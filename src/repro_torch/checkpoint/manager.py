@@ -6,9 +6,9 @@ flattened tree with '/'-joined keys, ``#i`` for list and tuple items) plus
 a json manifest (step, keys, the payload's sha256, user metadata), in
 ``step_<10 digits>/``. Either package reads what the other wrote. Leaves
 may be numpy arrays or tensors on any device; they are written as numpy
-arrays. ``restore`` returns numpy leaves, or tensors on ``device`` (the
-reference's ``shardings`` argument, which places leaves on a mesh, waits
-for the port's mesh: ROADMAP.md Queue 1 item 12).
+arrays. ``restore`` returns numpy leaves, or tensors on ``device``; with
+``shardings`` it places the listed leaves on a mesh as DTensors (elastic
+restore onto another topology).
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch._device import DeviceLike
 
@@ -173,9 +175,15 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         return json.loads((self.dir / f"step_{step:010d}" / "manifest.json").read_text())
 
-    def restore(self, step: Optional[int] = None, device: DeviceLike = None):
+    def restore(self, step: Optional[int] = None, device: DeviceLike = None, shardings=None):
         """Load a checkpoint: (tree, step). Leaves are numpy arrays, or
-        tensors on ``device`` when one is given."""
+        tensors on ``device`` when one is given.
+
+        ``shardings``: a tree of ``(mesh, placements)`` leaves matching (a
+        part of) the saved structure, as `runtime.sharding` gives them;
+        each listed leaf becomes a DTensor placed so (every rank of the
+        mesh restores the same checkpoint; the mesh or rules may differ
+        from save time)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -195,7 +203,27 @@ class CheckpointManager:
                     f"(manifest {want[:12]}…, payload {got[:12]}…)"
                 )
         z = np.load(io.BytesIO(raw))
-        flat = {k: z[k] for k in z.files}
-        if device is not None:
-            flat = {k: torch.from_numpy(v).to(device) for k, v in flat.items()}
-        return _unflatten(flat), step
+        targets = {} if shardings is None else _flatten_shardings(shardings)
+
+        def leaf(k, v):
+            if k in targets:
+                mesh, placements = targets[k]
+                return distribute_tensor(torch.from_numpy(v).to(mesh.device_type), mesh, placements)
+            return v if device is None else torch.from_numpy(v).to(device)
+
+        return _unflatten({k: leaf(k, z[k]) for k in z.files}), step
+
+
+def _flatten_shardings(tree, prefix=""):
+    """`_flatten` of a tree whose leaves are ``(mesh, placements)`` pairs."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten_shardings(v, f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, (list, tuple)) and not (len(tree) == 2 and isinstance(tree[0], DeviceMesh)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flatten_shardings(v, f"{prefix}#{i}/"))
+        return out
+    return {prefix[:-1]: tree}

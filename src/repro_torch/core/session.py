@@ -185,7 +185,9 @@ class SimNet:
     calls wait on their job handles instead of draining on the caller's
     thread (sessions are context managers: ``with SimNet(background=True)
     as sn: ...``). ``device`` (default ``cuda``) holds the engine and its
-    private service; ``mesh`` must be None (ROADMAP item 12).
+    private service; ``mesh`` (a ``DeviceMesh``, this rank its controller)
+    shards the lane axis, and closing the session ends the mesh's
+    followers (`serving.simnet_engine.follow`).
     """
 
     _session_ids = itertools.count()
@@ -207,11 +209,6 @@ class SimNet:
         background: bool = False,
         device: DeviceLike = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported: the port's sessions run on one "
-                "device (ROADMAP item 12)"
-            )
         self._metadata: Dict[str, Any] = {}
         if artifact is not None:
             if params is not None or pcfg is not None:
@@ -228,7 +225,7 @@ class SimNet:
         self.chunk = chunk
         self.train_result = train_result
         self.engine = SimNetEngine(
-            params, pcfg, self.sim_cfg, use_kernel=use_kernel, device=device,
+            params, pcfg, self.sim_cfg, mesh=mesh, use_kernel=use_kernel, device=device,
             cache=cache,
         )
         self.device = self.engine.device
@@ -256,10 +253,12 @@ class SimNet:
     def close(self):
         """Evict this session's resident model from its service registry
         (matters when many short-lived sessions join a shared service);
-        a private background drain loop is stopped too."""
+        a private background drain loop is stopped too, and a lane mesh's
+        followers are released."""
         if self._owns_service and self.service.running:
             self.service.stop()
         self.service.registry.remove(self.model_id)
+        self.engine.close()
 
     def __enter__(self) -> "SimNet":
         return self

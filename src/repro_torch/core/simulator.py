@@ -695,12 +695,19 @@ def workload_totals(state: SimState, packed: PackedWorkloads):
     integer-valued f32, so the sum is exact while a workload stays below
     2**24 cycles."""
     lane_total = state.cur_tick + drain_cycles(state)
+    cycles, overflow = lane_sums(lane_total, state.overflow, packed)
+    return lane_total, cycles, overflow
+
+
+def lane_sums(lane_total: torch.Tensor, lane_overflow: torch.Tensor, packed: PackedWorkloads):
+    """Per-workload sums of the (L,) per-lane cycle totals and overflow
+    counts of ``packed``'s lanes, on their device."""
     dev = lane_total.device
     wid = torch.from_numpy(packed.workload_id.astype(np.int64)).to(dev)
     W = packed.n_workloads
     cycles = torch.zeros(W, dtype=lane_total.dtype, device=dev).index_add_(0, wid, lane_total)
-    overflow = torch.zeros(W, dtype=torch.int32, device=dev).index_add_(0, wid, state.overflow)
-    return lane_total, cycles, overflow
+    overflow = torch.zeros(W, dtype=torch.int32, device=dev).index_add_(0, wid, lane_overflow)
+    return cycles, overflow
 
 
 def packed_tensors(packed: PackedWorkloads, device: torch.device, lo: int = 0,

@@ -4,8 +4,9 @@ Ties together: arch config → model (f32 masters) → train step → data
 pipeline → checkpoint/restart → straggler monitor, on one device
 (``device``, default ``cuda``; asking for ``cuda`` without a GPU raises).
 The reference's mesh (``model_axis``, sharded params and optimizer state)
-comes with the port's mesh (ROADMAP.md Queue 1 item 12): ``model_axis``
-other than 1 raises ``NotImplementedError`` until then.
+comes with the LM half of the port's mesh (ROADMAP.md Queue 1 item
+12a-LM): ``model_axis`` other than 1 raises ``NotImplementedError`` until
+then.
 
 A checkpoint holds ``{"params", "opt"}`` in the reference's format; a run
 resumes from the newest one in ``ckpt_dir``, whichever package wrote it
@@ -88,8 +89,8 @@ def train(
     and, the port's own, ``"metrics"`` (each step's metrics as floats),
     ``"params"`` and ``"opt"`` (the final masters and Adam state)."""
     if model_axis != 1:
-        raise NotImplementedError("model_axis > 1 needs the port's device mesh "
-                                  "(ROADMAP.md Queue 1 item 12)")
+        raise NotImplementedError("model_axis > 1 needs the LM half of the port's device mesh "
+                                  "(ROADMAP.md Queue 1 item 12a-LM)")
     dev = resolve_device(device)
     cfg = get_reduced_config(arch) if reduced else get_config(arch)
     if accum_steps is not None:

@@ -4,7 +4,8 @@
 * Parameters are nested dicts of tensors with the reference's names and
   layouts (a dense kernel is (in, out), used as ``x @ w``).
 * Every ``init_*`` draws from an explicit ``torch.Generator`` and returns
-  the params alone (no ``ShardSpec`` trees until the mesh slice).
+  the params alone (``ShardSpec`` is in ``nn.init``; the families'
+  ``ShardSpec`` trees come with the LM half of the mesh).
 * Compute dtype is taken from the config (bf16 by default).
 * Ported so far: init, layers, rope, attention and the dense transformer
   block; moe and ssm come with their families.

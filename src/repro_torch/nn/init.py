@@ -1,17 +1,36 @@
 """Parameter initialisation helpers — the port of ``repro.nn.init``.
 
 Every initialiser draws from an explicit ``torch.Generator`` and returns
-the tensor alone: the reference's ``ShardSpec`` trees (logical sharding
-axes) come with the mesh slice (ROADMAP.md Queue 1 item 12). Tensors are
-made on the generator's device, so a CUDA generator initialises a
-full-width model on the card without a trip through host memory.
+the tensor alone. ``ShardSpec`` (logical sharding axes, which
+``repro_torch.runtime.sharding`` maps onto a mesh) is here; the families'
+``init`` do not return ``ShardSpec`` trees yet (ROADMAP.md Queue 1, item
+12a-LM). Tensors are made on the generator's device, so a CUDA generator
+initialises a full-width model on the card without a trip through host
+memory.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """Logical sharding annotation for one parameter.
+
+    ``axes`` has one entry per array dim: a logical-axis name (str) or None.
+    Common logical names: "embed" (d_model-like), "mlp" (ffn hidden),
+    "heads" (attn head dim product), "vocab", "expert", "layers" (scan dim),
+    "kv" (kv-head product), None (replicated).
+    """
+
+    axes: Tuple[Optional[str], ...]
+
+    def __iter__(self):
+        return iter(self.axes)
 
 
 def _truncated_normal(generator: torch.Generator, shape, stddev: float, dtype) -> torch.Tensor:

@@ -61,14 +61,28 @@ def chunk_bucket(n_steps: int, max_chunk: int) -> int:
     return min(1 << (n_steps - 1).bit_length(), max_chunk)
 
 
+def mesh_fingerprint(mesh) -> Optional[Tuple]:
+    """Hashable identity of a ``DeviceMesh`` (dim names × shape × ranks in
+    mesh order), the counterpart of the reference's (axis names × shape ×
+    device ids); None for no mesh."""
+    if mesh is None:
+        return None
+    return (
+        tuple(mesh.mesh_dim_names),
+        tuple(mesh.mesh.shape),
+        tuple(int(r) for r in mesh.mesh.flatten().tolist()),
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecutableKey:
     """Everything a chunk program depends on.
 
     Weights are deliberately absent: a program takes them as an argument,
     so any model with the same architecture hits the same entry.
-    ``predictor`` is None for teacher-forced replay. ``mesh`` is always
-    None in the port (one device per program).
+    ``predictor`` is None for teacher-forced replay. ``mesh`` is the
+    `mesh_fingerprint` of a lane-sharded engine's mesh (None without
+    one); ``n_lanes`` is then the global bucket, which the mesh splits.
     """
 
     predictor: Optional[PredictorConfig]

@@ -125,8 +125,8 @@ class DecodeEngine:
 
     def __init__(self, decoder: StatefulDecoder, params, *, mesh=None, donate: bool = False):
         # ``mesh`` and ``donate`` are accepted for the reference's signature
-        # and ignored: the port runs on one device (the mesh slice is
-        # ROADMAP.md Queue 1 item 12), and it never consumes the caller's
+        # and ignored: the port decodes on one device (the LM half of the
+        # mesh is ROADMAP.md Queue 1 item 12a-LM), and it never consumes the caller's
         # state, since every pass decodes from a copy
         self.decoder = decoder
         self.params = params

@@ -1,7 +1,7 @@
 """Model registry: resident SimNet predictors shared across all requests —
 the port of ``repro.serving.registry``. Engines live on the registry's
-``device`` (default ``cuda``); a ``mesh`` raises, as the port's programs
-run on one device (ROADMAP item 12).
+``device`` (default ``cuda``) and shard their lanes over its ``mesh`` when
+one is given.
 
 The paper's deployment model is train-once / simulate-everywhere; the
 serving-side mirror is load-once / serve-everyone. A `ModelRegistry` keys
@@ -32,7 +32,7 @@ from repro_torch.checkpoint.manager import ArtifactCorrupt
 from repro_torch.core.predictor import PredictorConfig
 from repro_torch.core.simulator import SimConfig
 from repro_torch.serving.compile_cache import CompileCache
-from repro_torch.serving.simnet_engine import SimNetEngine
+from repro_torch.serving.simnet_engine import LaneMesh, SimNetEngine
 from repro_torch.serving.telemetry import CircuitBreaker
 
 TEACHER_FORCED = "teacher-forced"
@@ -41,8 +41,7 @@ TEACHER_FORCED = "teacher-forced"
 class ModelRegistry:
     """Resident engines by model id. Construction-time ``use_kernel`` /
     ``cache`` / ``device`` apply to every engine the registry builds (an
-    externally built engine can be adopted via `add_engine`); ``mesh``
-    must be None.
+    externally built engine can be adopted via `add_engine`).
     Thread-safe: admission, lookup and eviction serialize on one
     re-entrant lock (engine *construction* is cheap — compiles happen
     lazily at first dispatch, outside the registry).
@@ -59,10 +58,7 @@ class ModelRegistry:
                  breaker_threshold: int = 5, breaker_reset_s: float = 30.0,
                  clock=time.monotonic, device: DeviceLike = None):
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported: the port's programs run on one "
-                "device (ExecutableKey.mesh is always None; ROADMAP item 12)"
-            )
+            LaneMesh(mesh)  # a mesh that cannot shard lanes raises here, not at add()
         self.mesh = mesh
         self.device = resolve_device(device)
         self.use_kernel = use_kernel
@@ -95,7 +91,7 @@ class ModelRegistry:
         """Register in-memory weights (or a teacher-forced entry when
         ``params`` is None) as a resident model."""
         return self.add_engine(model_id, SimNetEngine(
-            params, pcfg, sim_cfg, use_kernel=self.use_kernel,
+            params, pcfg, sim_cfg, mesh=self.mesh, use_kernel=self.use_kernel,
             device=self.device, cache=self.cache,
         ))
 

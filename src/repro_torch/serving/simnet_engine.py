@@ -27,15 +27,35 @@ weights (other tensors, or the same ones updated in place: a
 from the static state after the last chunk. Two engines of the same kind
 share one graph. On the CPU a program is the eager chunk function
 (`ChunkProgram`) under the same cache and counters.
+
+**The lane mesh.** ``SimNetEngine(mesh=)`` splits the lanes of the
+power-of-two bucket over the mesh's lane axes, pod then data (the
+reference's ``P(("pod", "data"))``); ``head``, the weights and the
+program are the same on every rank, and ranks that differ only on the
+``model`` axis run the same lanes. One process drives the mesh: the
+controller (the rank at coordinate 0 on every axis) runs everything above
+the engine, and every other rank serves it in `follow`. A call sends each
+follower one request (the program key, the weights, its lane slice of the
+pack), every rank streams its slice through its own chunk program at its
+local lane count (K1 on the fused route), and the controller gathers the
+per-lane totals back in lane order and reduces them as one rank would.
+Nothing is exchanged inside a chunk: the lanes never communicate. The
+exchange is point to point on the default process group with CPU tensors
+(gloo), which also serves several ranks on one card, where NCCL refuses.
 """
 from __future__ import annotations
 
+import dataclasses
+import pickle
 import threading
 import time
+from datetime import timedelta
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._tree import tree_map
@@ -47,9 +67,12 @@ from repro_torch.core.predictor import (
     make_fused_predict_fn,
 )
 from repro_torch.core.simulator import (
+    PackedWorkloads,
     SimConfig,
     SimState,
+    drain_cycles,
     init_state,
+    lane_sums,
     make_sim_scan,
     pack_workloads,
     packed_tensors,
@@ -64,6 +87,7 @@ from repro_torch.serving.compile_cache import (
     device_key,
     global_cache,
     lane_bucket,
+    mesh_fingerprint,
 )
 from repro_torch.serving.graphs import CapturedGraph, ParamsBinding
 
@@ -127,17 +151,19 @@ def run_chunk(pcfg: Optional[PredictorConfig], sim_cfg: SimConfig, use_kernel: b
 
 
 class ChunkProgram:
-    """The chunk program of one key on the CPU: `run_chunk`, eagerly."""
+    """The chunk program of one key on the CPU: `run_chunk`, eagerly, on
+    ``n_lanes`` lanes (the key's bucket, or a mesh rank's share of it)."""
 
-    def __init__(self, key: ExecutableKey, device: torch.device):
+    def __init__(self, key: ExecutableKey, device: torch.device, n_lanes: Optional[int] = None):
         self.key = key
         self.device = device
+        self.n_lanes = n_lanes or key.n_lanes
 
     def run(self, params, chunks, retire_width, lane_ctx, finish):
         """One pass from the zero state through ``chunks``; returns
         ``finish(final state)``."""
         k = self.key
-        state = init_state(k.n_lanes, k.sim_cfg, self.device)
+        state = init_state(self.n_lanes, k.sim_cfg, self.device)
         for xs in chunks:
             state = run_chunk(k.predictor, k.sim_cfg, k.use_kernel, params, state, xs,
                               retire_width, lane_ctx)
@@ -146,7 +172,8 @@ class ChunkProgram:
 
 class ChunkGraph:
     """The chunk program of one key on the card: one CUDA graph of a whole
-    chunk over static buffers (see the module docstring).
+    chunk over static buffers (see the module docstring), on ``n_lanes``
+    lanes (the key's bucket, or a mesh rank's share of it).
 
     A graph entry is not reentrant: ``run`` holds the entry's lock from
     the first copy in to the read-out, so passes from several threads (a
@@ -158,8 +185,9 @@ class ChunkGraph:
     models of one kind alternating on the graph refill at every turn).
     """
 
-    def __init__(self, key: ExecutableKey, device: torch.device, params=None):
-        L, T, cfg = key.n_lanes, key.chunk, key.sim_cfg
+    def __init__(self, key: ExecutableKey, device: torch.device, params=None,
+                 n_lanes: Optional[int] = None):
+        L, T, cfg = n_lanes or key.n_lanes, key.chunk, key.sim_cfg
         self.key = key
         self.device = device
         self.lock = threading.Lock()
@@ -212,16 +240,206 @@ def _copy_tree(slots, params):
         slots.copy_(params)
 
 
+def _program(cache: CompileCache, key: ExecutableKey, device: torch.device, params,
+              n_lanes: int):
+    """The resident chunk program of ``key`` on ``n_lanes`` lanes from
+    ``cache`` (built exactly once per key): a `ChunkGraph` on the card, a
+    `ChunkProgram` on the CPU."""
+    def build():
+        if device.type == "cuda":
+            return ChunkGraph(key, device, params, n_lanes)
+        return ChunkProgram(key, device, n_lanes)
+
+    prog = cache.get(key, build)
+    if device_key(prog.device) != device_key(device):
+        raise ValueError(f"the cache holds this key's program on {prog.device}, not on "
+                         f"{device}: a cache serves one device")
+    return prog
+
+
+def _run_passes(prog, params, packed: PackedWorkloads, chunk: int, timeit: bool,
+                device: torch.device, finish, report):
+    """The passes of a ``simulate_many`` call over ``packed``'s lanes: one,
+    or under ``timeit`` two over the pack staged on the device up front.
+    Each pass returns ``report(prog.run(..., finish))``; the result is a
+    list of (that value, the pass's seconds, the time it ended)."""
+    # per-lane configs go to the device once; trace chunks stream one at a
+    # time from the host (device memory stays O(chunk)) — except under
+    # timeit, where the WHOLE pack is staged up front so the timed
+    # re-stream measures the simulation, not host-to-device copies
+    offsets = range(0, packed.n_steps, chunk)
+    staged = [packed_tensors(packed, device, lo, lo + chunk) for lo in offsets] if timeit else None
+    host = torch.device("cpu")
+    rw = torch.from_numpy(packed.retire_width).to(device)
+    lc = torch.from_numpy(packed.lane_ctx).to(device)
+    out = []
+    for _ in range(2 if timeit else 1):
+        t0 = time.perf_counter()
+        chunks = staged if staged is not None else (
+            packed_tensors(packed, host, lo, lo + chunk) for lo in offsets)
+        value = report(prog.run(params, chunks, rw, lc, finish))
+        t1 = time.perf_counter()
+        out.append((value, t1 - t0, t1))
+    return out
+
+
+def _lanes_of(state: SimState):
+    """A pass's per-lane (cycle total, overflow count), on the host."""
+    return (state.cur_tick + drain_cycles(state)).cpu(), state.overflow.cpu()
+
+
+def _lane_slice(packed: PackedWorkloads, lo: int, hi: int) -> PackedWorkloads:
+    """Lanes [lo, hi) of a pack (a mesh rank's share)."""
+    if (lo, hi) == (0, packed.n_lanes):
+        return packed
+    return dataclasses.replace(
+        packed,
+        xs={k: np.ascontiguousarray(v[:, lo:hi]) for k, v in packed.xs.items()},
+        workload_id=packed.workload_id[lo:hi], retire_width=packed.retire_width[lo:hi],
+        lane_ctx=packed.lane_ctx[lo:hi], lane_steps=packed.lane_steps[lo:hi],
+    )
+
+
+# -- the lane mesh ----------------------------------------------------------
+
+LANE_AXES = ("pod", "data")  # the reference's lane sharding: P(("pod", "data"))
+
+# One exchange at a time in a process: the controller's requests and
+# gathers share the default group's point-to-point channels, so two
+# threads' calls (a service's drain thread beside a caller) must not
+# interleave their messages.
+EXCHANGE_LOCK = threading.Lock()
+
+
+class LaneMesh:
+    """Where a ``DeviceMesh`` puts an engine's lanes.
+
+    The lanes split into ``n_shards`` equal slices over the lane axes
+    (pod major, data minor, as the reference shards them); a rank's
+    ``shard`` is its slice. Ranks that differ only on other axes (the
+    ``model`` axis) hold the same slice; of each slice, the rank with
+    coordinate 0 on those axes is its ``primary``, whose totals are
+    gathered. The ``controller`` is the rank at coordinate 0 on every
+    axis. The mesh must span the default process group's world, which
+    carries the exchange."""
+
+    def __init__(self, mesh):
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch DeviceMesh, got {type(mesh).__name__}")
+        names = tuple(mesh.mesh_dim_names or ())
+        lane_dims = [names.index(a) for a in LANE_AXES if a in names]
+        if not lane_dims:
+            raise ValueError(f"the mesh {names} has no lane axis of {LANE_AXES}")
+        grid = mesh.mesh
+        shape = tuple(grid.shape)
+        self.ranks = [int(r) for r in grid.flatten().tolist()]
+        if len(self.ranks) != dist.get_world_size():
+            raise ValueError(f"the mesh spans {len(self.ranks)} ranks of a world of "
+                             f"{dist.get_world_size()}: it must span the whole world")
+        self.controller = self.ranks[0]
+        self.n_shards = int(np.prod([shape[d] for d in lane_dims]))
+        self.shard, self.primary = {}, {}
+        for idx, rank in zip(np.ndindex(*shape), self.ranks):
+            s = 0
+            for d in lane_dims:
+                s = s * shape[d] + idx[d]
+            self.shard[rank] = s
+            self.primary[rank] = all(idx[d] == 0 for d in range(len(shape)) if d not in lane_dims)
+        self.followers = self.ranks[1:]
+
+
+def _send(obj, dst: int) -> None:
+    data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    dist.send(torch.tensor([len(data)], dtype=torch.int64), dst)
+    dist.send(torch.frombuffer(bytearray(data), dtype=torch.uint8), dst)
+
+
+def _recv(src: int):
+    # only this program's ranks write to the group: the bytes are ours
+    n = torch.zeros(1, dtype=torch.int64)
+    dist.recv(n, src)
+    buf = torch.empty(int(n), dtype=torch.uint8)
+    dist.recv(buf, src)
+    return pickle.loads(buf.numpy().tobytes())
+
+
+def follow(mesh, device: DeviceLike = None) -> int:
+    """Serve the controller of ``mesh`` on this rank until it releases its
+    followers (`SimNetEngine.close`, the end of a ``SimNet`` context);
+    returns the number of requests served. Programs come from the
+    device's process-wide cache.
+
+    A request carries everything a pass needs (the program key, the
+    weights, this rank's lane slice of the pack and whether it is its
+    slice's primary), so one loop serves every engine of the controller,
+    on any mesh over the same world with the same controller. Each pass
+    answers the controller once: the slice's per-lane totals (a primary),
+    ``None`` (another rank of the slice) or the error that stopped it."""
+    lanes = LaneMesh(mesh)
+    rank = dist.get_rank()
+    if rank == lanes.controller:
+        raise ValueError(f"rank {rank} is the controller of this mesh, not a follower")
+    dev = resolve_device(device)
+    cache = global_cache(dev)
+    served = 0
+    while True:
+        req = _recv(lanes.controller)
+        if req is None:
+            return served
+        passes = 2 if req["timeit"] else 1
+        sent = 0
+
+        def report(lane_arrays, primary=req["primary"]):
+            nonlocal sent
+            _send(lane_arrays if primary else None, lanes.controller)
+            sent += 1
+
+        try:
+            key, pack = req["key"], req["pack"]
+            params = None if req["params"] is None else tree_map(lambda t: t.to(dev), req["params"])
+            prog = _program(cache, key, dev, params, pack.n_lanes)
+            _run_passes(prog, params, pack, key.chunk, req["timeit"], dev, _lanes_of, report)
+        # repro-lint: disable=hygiene-broad-except — any failure goes to the controller, which raises it; this rank keeps serving
+        except Exception as e:
+            while sent < passes:
+                _send({"error": f"rank {rank}: {type(e).__name__}: {e}"}, lanes.controller)
+                sent += 1
+        served += 1
+
+
+def run_follower(rank: int, world_size: int, init_method: str, meshes=((None, ("data", "model")),),
+                 device_type: str = "cuda", device: DeviceLike = None,
+                 timeout_s: float = 1800.0) -> int:
+    """A follower process: join the gloo group at ``init_method`` as
+    ``rank``, build ``meshes`` ((shape, axes) pairs, shape None for
+    `launch.mesh.make_host_mesh`) in the order the controller builds them,
+    and `follow` the first until the controller releases it. A target for
+    ``multiprocessing`` with the spawn method. ``timeout_s`` bounds every
+    wait, an idle follower's for the next request too."""
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+
+    dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world_size,
+                            timeout=timedelta(seconds=timeout_s))
+    try:
+        built = [make_host_mesh(device_type=device_type) if shape is None
+                 else make_mesh(shape, axes, device_type) for shape, axes in meshes]
+        return follow(built[0], device)
+    finally:
+        dist.destroy_process_group()
+
+
 class SimNetEngine:
     def __init__(self, params=None, pcfg: Optional[PredictorConfig] = None,
-                 sim_cfg: Optional[SimConfig] = None, use_kernel: bool = False,
+                 sim_cfg: Optional[SimConfig] = None, mesh=None, use_kernel: bool = False,
                  device: DeviceLike = None, cache: Optional[CompileCache] = None):
         """params=None runs teacher-forced: the programs replay the packed
-        DES labels through the identical chunked path. ``device`` defaults
-        to ``cuda`` (raises without a GPU); the weights move there once.
-        ``cache`` overrides the device's process-wide program cache
-        (cold-cache measurements / isolation in tests); a cache serves one
-        device."""
+        DES labels through the identical chunked path. ``mesh`` (a
+        ``DeviceMesh`` with a "data" or "pod" axis, this rank its
+        controller) splits the lanes over its ranks (see the module
+        docstring). ``device`` defaults to ``cuda`` (raises without a GPU);
+        the weights move there once. ``cache`` overrides the device's
+        process-wide program cache (cold-cache measurements / isolation in
+        tests); a cache serves one device."""
         if params is not None and pcfg is None:
             raise ValueError("pcfg is required when params are given")
         self.device = resolve_device(device)
@@ -229,6 +447,15 @@ class SimNetEngine:
         self.sim_cfg = sim_cfg or (
             SimConfig(ctx_len=pcfg.ctx_len) if pcfg is not None else SimConfig()
         )
+        self.mesh = mesh
+        self._lanes = None if mesh is None else LaneMesh(mesh)
+        self._closed = False
+        if self._lanes is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot drive an engine on {self.device}")
+            if dist.get_rank() != self._lanes.controller:
+                raise ValueError(f"rank {dist.get_rank()} is a follower of this mesh: it calls "
+                                 "follow(mesh), and only the controller builds engines")
         self.use_kernel = use_kernel
         self.cache = cache if cache is not None else global_cache(self.device)
         # may be rebound, or updated in place: a resident graph sees either
@@ -245,6 +472,16 @@ class SimNetEngine:
         return run_chunk(self.pcfg, self.sim_cfg, self.use_kernel, self.params, state, xs,
                          retire_width, lane_ctx)
 
+    def close(self) -> None:
+        """End the followers' loops of a lane-sharded engine's mesh (the
+        controller's last call on it; a second call does nothing); nothing
+        without a mesh."""
+        if self._lanes is not None and not self._closed:
+            self._closed = True
+            with EXCHANGE_LOCK:
+                for r in self._lanes.followers:
+                    _send(None, r)
+
     # -- resident programs ---------------------------------------------
 
     def executable_key(self, n_lanes: int, chunk: int) -> ExecutableKey:
@@ -255,26 +492,26 @@ class SimNetEngine:
             sim_cfg=self.sim_cfg,
             n_lanes=n_lanes,
             chunk=chunk,
-            mesh=None,
+            mesh=mesh_fingerprint(self.mesh),
             use_kernel=self.use_kernel,
         )
+
+    def _shard_lanes(self, n_lanes: int) -> int:
+        """This rank's share of a bucket of ``n_lanes`` (all of it without
+        a mesh); a bucket the lane axes do not divide raises."""
+        if self._lanes is None:
+            return n_lanes
+        if n_lanes % self._lanes.n_shards:
+            raise ValueError(f"a bucket of {n_lanes} lanes does not split over the mesh's "
+                             f"{self._lanes.n_shards} lane shards")
+        return n_lanes // self._lanes.n_shards
 
     def executable(self, n_lanes: int, chunk: int):
         """The resident chunk program from the cache (built exactly once
         per ExecutableKey): a `ChunkGraph` on the card, a `ChunkProgram`
-        on the CPU."""
-        dev, key = self.device, self.executable_key(n_lanes, chunk)
-
-        def build():
-            if dev.type == "cuda":
-                return ChunkGraph(key, dev, self.params)
-            return ChunkProgram(key, dev)
-
-        prog = self.cache.get(key, build)
-        if device_key(prog.device) != device_key(dev):
-            raise ValueError(f"the cache holds this key's program on {prog.device}, not on "
-                             f"{dev}: a cache serves one device")
-        return prog
+        on the CPU, on this rank's share of the ``n_lanes`` bucket."""
+        return _program(self.cache, self.executable_key(n_lanes, chunk), self.device,
+                        self.params, self._shard_lanes(n_lanes))
 
     # -- packed multi-workload path ------------------------------------
 
@@ -295,7 +532,9 @@ class SimNetEngine:
         one program. timeit=True stages the whole pack on the device and
         streams it a second time, reporting steady-state throughput from
         that pass; the first pass's cost (build or cache hit + staging +
-        run) stays in ``first_call_seconds`` either way."""
+        run) stays in ``first_call_seconds`` either way. On a mesh a pass
+        runs on every rank and ends when the controller has gathered its
+        totals; the first also sends the requests."""
         t_start = time.perf_counter()
         cache_before = self.cache.counters()
         packed = pack_workloads(
@@ -309,34 +548,19 @@ class SimNetEngine:
             )
         n_live = packed.n_lanes
         packed = pad_packed_lanes(packed, lane_bucket(n_live))
-        dev = self.device
-        prog = self.executable(packed.n_lanes, chunk)
+        if self.mesh is None:
+            prog = self.executable(packed.n_lanes, chunk)
 
-        # per-lane configs go to the device once; trace chunks stream one at
-        # a time from the host (device memory stays O(chunk)) — except under
-        # timeit, where the WHOLE pack is staged up front so the timed
-        # re-stream measures the simulation, not host-to-device copies
-        offsets = range(0, packed.n_steps, chunk)
-        staged = [packed_tensors(packed, dev, lo, lo + chunk) for lo in offsets] if timeit else None
-        host = torch.device("cpu")
-        rw = torch.from_numpy(packed.retire_width).to(dev)
-        lc = torch.from_numpy(packed.lane_ctx).to(dev)
+            def finish(state):
+                _, cycles, overflow = workload_totals(state, packed)
+                return cycles.cpu(), overflow.cpu()  # waits for the device
 
-        def finish(state):
-            _, cycles, overflow = workload_totals(state, packed)
-            return cycles.cpu(), overflow.cpu()  # waits for the device
-
-        def one_pass():
-            t0 = time.perf_counter()
-            chunks = staged if staged is not None else (
-                packed_tensors(packed, host, lo, lo + chunk) for lo in offsets)
-            cycles, overflow = prog.run(self.params, chunks, rw, lc, finish)
-            return time.perf_counter() - t0, cycles, overflow
-
-        dt, cycles, overflow = one_pass()
-        first_dt = time.perf_counter() - t_start  # build/cache hit + staging + first run
-        if timeit:
-            dt, cycles, overflow = one_pass()
+            passes = _run_passes(prog, self.params, packed, chunk, timeit, self.device, finish,
+                                 lambda totals: totals)
+        else:
+            passes = self._sharded_passes(packed, chunk, timeit)
+        (cycles, overflow), dt, _ = passes[-1]
+        first_dt = passes[0][2] - t_start  # build/cache hit + staging + first run
         cycles = cycles.numpy().astype(np.float64)
         # Numeric guard: a NaN/Inf anywhere in the predictor's latency
         # stream propagates into these per-workload sums — catch it here,
@@ -365,6 +589,60 @@ class SimNetEngine:
             "first_call_seconds": first_dt,
             "cache": self.cache.delta_since(cache_before),
         }
+
+    def _sharded_passes(self, packed: PackedWorkloads, chunk: int, timeit: bool):
+        """`_run_passes` over the mesh: a request to each follower, this
+        rank's slice here, and after each pass the primaries' per-lane
+        totals gathered in lane order and reduced to per-workload sums."""
+        lanes = self._lanes
+        local = self._shard_lanes(packed.n_lanes)
+        key = self.executable_key(packed.n_lanes, chunk)
+        n_passes = 2 if timeit else 1
+        gathered = 0
+
+        def answers():
+            """Every follower's answer to one pass: (slices by shard, errors)."""
+            nonlocal gathered
+            gathered += 1
+            parts, errors = {}, []
+            for r in lanes.followers:
+                msg = _recv(r)
+                if isinstance(msg, dict):
+                    errors.append(msg["error"])
+                elif msg is not None:
+                    parts[lanes.shard[r]] = msg
+            return parts, errors
+
+        def gather(own):
+            """One pass's per-workload sums, this rank's slice first."""
+            parts, errors = answers()
+            if errors:
+                raise RuntimeError(f"a follower of the mesh failed: {'; '.join(errors)}")
+            parts[0] = own
+            lane_total = torch.cat([parts[s][0] for s in range(lanes.n_shards)])
+            lane_overflow = torch.cat([parts[s][1] for s in range(lanes.n_shards)])
+            return lane_sums(lane_total, lane_overflow, packed)
+
+        with EXCHANGE_LOCK:
+            if lanes.followers:
+                # the weights go with every request, so a rebound
+                # engine.params reaches every rank at its next call
+                host_params = None if self.params is None else tree_map(
+                    lambda t: t.detach().cpu(), self.params)
+                for r in lanes.followers:
+                    s = lanes.shard[r]
+                    _send({"key": key, "params": host_params, "timeit": timeit,
+                           "primary": lanes.primary[r],
+                           "pack": _lane_slice(packed, s * local, (s + 1) * local)}, r)
+            try:
+                prog = self.executable(packed.n_lanes, chunk)
+                return _run_passes(prog, self.params, _lane_slice(packed, 0, local), chunk, timeit,
+                                   self.device, _lanes_of, gather)
+            finally:
+                # every follower answers every pass: read what a failure
+                # here left unread, so the next call starts in step
+                while gathered < n_passes:
+                    answers()
 
     # -- single-workload convenience (same packed path underneath) -----
 

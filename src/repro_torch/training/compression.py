@@ -11,14 +11,15 @@ re-injected instead of lost:
     payload, state = comp.compress(grads, state)   # {...: (q int8, scale)}
     grads_hat = comp.decompress(payload)
 
-The reference's ``cross_pod_mean`` reduces the payload over a mesh's pod
-axis; it comes with the port's mesh (ROADMAP.md Queue 1 item 12).
+``cross_pod_mean`` averages a tree over a mesh's pod axis (the scarce
+cross-pod hop), on the dequantised payload when a compressor is given.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._tree import tree_map
 
@@ -57,3 +58,27 @@ class ErrorFeedbackCompressor:
             q, scale = payload
             return q.to(torch.float32) * scale
         return type(payload)(self.decompress(v) for v in payload)
+
+
+def cross_pod_mean(grads, mesh, axis_name: str = "pod", compressor: ErrorFeedbackCompressor = None,
+                   residual=None):
+    """Mean-reduce this rank's ``grads`` over the ``axis_name`` sub-mesh's
+    group of ``mesh``, optionally int8 + error feedback: each rank
+    quantises its tree, and the dequantised payload is what is averaged.
+    Returns (reduced tree, new residual).
+
+    Within-pod reduction is assumed already done (full precision); this
+    is only the scarce cross-pod hop.
+    """
+    group = mesh.get_group(axis_name)
+    n = dist.get_world_size(group)
+
+    def mean(x):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x / n
+
+    if compressor is None:
+        return tree_map(mean, grads), residual
+    payload, residual = compressor.compress(grads, residual)
+    return tree_map(mean, compressor.decompress(payload)), residual

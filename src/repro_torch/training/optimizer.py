@@ -5,8 +5,8 @@ Plain functions on nested dicts of tensors, following the reference's
 arithmetic line by line (``torch.optim.Adam`` clips, schedules and decays
 otherwise). The optimizer state mirrors the param tree; its ``step`` is a
 0-d int32 tensor on the params' device, so an update never waits for the
-host. The reference's ``adam_state_specs`` (a ``ShardSpec`` tree) comes
-with the mesh slice.
+host. ``adam_state_specs`` gives the state's ``ShardSpec`` tree, the
+params' own (``runtime.sharding`` maps it onto a mesh).
 """
 from __future__ import annotations
 
@@ -45,6 +45,20 @@ def adam_init(params, keep_master: bool = False):
     }
     if keep_master:
         state["master"] = tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
+    return state
+
+
+def adam_state_specs(param_specs, keep_master: bool = False):
+    """Optimizer-state ShardSpec tree mirroring the params."""
+    from repro_torch.nn.init import ShardSpec
+
+    state = {
+        "m": param_specs,
+        "v": param_specs,
+        "step": ShardSpec(()),
+    }
+    if keep_master:
+        state["master"] = param_specs
     return state
 
 

@@ -5,8 +5,8 @@ Gradients come from autograd: each step takes the params as leaves that
 require grad (views of the given tensors) and returns the new params from
 `repro_torch.training.optimizer.adam_update`, which need none. The
 reference's ``constrain``, ``grad_shardings`` and ``layer_specs`` place
-values on a device mesh; they come with the port's mesh (ROADMAP.md Queue
-1 item 12), and the port takes none of them yet.
+values on a device mesh; they come with the LM half of the port's mesh
+(ROADMAP.md Queue 1 item 12a-LM), and the port takes none of them yet.
 """
 from __future__ import annotations
 

@@ -35,8 +35,7 @@ from repro_torch.serving import faults as port_faults  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "examples" / "serve_lm_torch.py",
-    REPO / "examples" / "train_lm_torch.py"]
+    REPO / "chip_smoke.py"] + sorted((REPO / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "repro")
 
 
@@ -211,7 +210,8 @@ def test_same_fault_plan_gives_the_same_schedule_in_both_packages(spec):
 # the framework-free modules the port keeps as copies: (reference, port)
 COPIES = [("core/results.py", "core/results.py"), ("serving/backoff.py", "serving/backoff.py"),
           ("serving/telemetry.py", "serving/telemetry.py"), ("data/pipeline.py", "data/pipeline.py"),
-          ("runtime/straggler.py", "runtime/straggler.py")] + [
+          ("runtime/straggler.py", "runtime/straggler.py"),
+          ("configs/shapes.py", "configs/shapes.py")] + [
     (f"analysis/{p.name}", f"analysis/{p.name}")
     for p in sorted((REPO / "src" / "repro" / "analysis").glob("*.py"))]
 
@@ -236,7 +236,7 @@ def test_copy_is_the_reference_apart_from_imports(ref, port):
     got = (REPO / "src" / "repro_torch" / port).read_text()
     assert _without_imports(got) == _without_imports(want)
     assert len(got.splitlines()) == len(want.splitlines())
-    assert len(COPIES) == 11
+    assert len(COPIES) == 12
 
 
 def _lint(analysis, paths, cwd):

@@ -172,13 +172,48 @@ def test_train_save_load_simulate_round_trip(traces, tmp_path):
 
 
 def test_mesh_is_not_ported():
-    """A device mesh raises where the reference would shard (ROADMAP item
-    12), in the session, the registry and the service."""
+    """A ``mesh`` that is not a torch ``DeviceMesh`` raises in the session,
+    the registry and the service (a ``DeviceMesh`` shards the lanes:
+    `test_a_world1_mesh_serves_as_one_rank` below, and
+    ``tests/test_torch_mesh_engine.py`` over several ranks)."""
     for make in (lambda: SimNet(mesh=object(), device="cpu"),
                  lambda: ModelRegistry(mesh=object(), device="cpu"),
                  lambda: SimServe(mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make()
+
+
+@pytest.fixture
+def world1_mesh():
+    """`make_host_mesh` on the CPU, which starts a one-process gloo group;
+    the group ends with the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    try:
+        yield make_host_mesh(device_type="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_a_world1_mesh_serves_as_one_rank(traces, artifacts, world1_mesh):
+    """`SimNet`, `ModelRegistry` and `SimServe` take a mesh and pass it to
+    their engines, as the reference's do: on a one-rank mesh the totals
+    equal the reference session's."""
+    ref, _ = _sessions(artifacts["c3"])
+    want = [w.total_cycles for w in ref.simulate_many(traces, n_lanes=LANES)]
+    art = PredictorArtifact.load(artifacts["c3"], device="cpu")
+    with SimNet(art, mesh=world1_mesh, device="cpu", cache=CompileCache()) as sn:
+        assert sn.engine.mesh is world1_mesh
+        assert [w.total_cycles for w in sn.simulate_many(traces, n_lanes=LANES)] == want
+    serve = SimServe(mesh=world1_mesh, device="cpu", cache=CompileCache())
+    assert serve.registry.mesh is world1_mesh
+    serve.register("c3", art)
+    handles = [serve.submit(t, "c3", n_lanes=n) for t, n in zip(traces, LANES)]
+    serve.drain()
+    assert [h.result().total_cycles for h in handles] == want
 
 
 def test_c1_with_kernel_raises_as_the_reference_does(traces, artifacts):
