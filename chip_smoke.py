@@ -79,7 +79,18 @@ launches each makes:
   on a gloo file-store group, K1 on each rank's half of the lanes; the
   totals equal one rank's on the same lanes, and teacher-forced one rank's
   on all of them), and ``examples/quickstart_torch.py --device cuda`` as a
-  child process (its DES CPIs held to the DES run on the host).
+  child process (its DES CPIs held to the DES run on the host);
+- sharded LM training (phase [15]): tinyllama-1.1b at [13]'s full width
+  through ``launch.train.train(model_axis=1)`` (one rank: plain tensors)
+  beside the same step on a one-rank mesh's DTensors, bit for bit; then
+  two ranks on the one card (a spawned follower, a (data 1, model 2)
+  mesh: params, Adam state and activations split by the rule table, gloo
+  for the all-reduces, the all-gathers and reduce-scatters through the
+  ranks' device buffers by CUDA IPC), held to the one-rank run and,
+  at reduced width in f32, to one rank within 1e-5, with each collective
+  kind's bytes a step counted; the two-rank params, checkpointed and
+  restored unsharded, decode through ``DecodeEngine`` with K4 to the same
+  tokens as the params gathered in memory.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -140,7 +151,7 @@ ONESHOT_LANES, CHUNK_CAPS = 16, (256, 512, 1024)
 # phase [14]: the lane mesh. Rounds of (unsharded, mesh, mesh, unsharded)
 # timed runs of the [5] pack; the bound of every wait of the two-rank
 # group and of the quickstart child
-MESH_TURNS, MESH_TIMEOUT_S = 3, 300
+MESH_TURNS, MESH_TIMEOUT_S = 2, 300
 LM_ARCH = "gemma3-4b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 8, 2048, 64  # requests, prompt tokens, decode steps
 LM_CACHE = 2112  # prompt + steps
@@ -201,6 +212,18 @@ LM_TRAIN_ARCH = "tinyllama-1.1b"
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_LR = 8, 2048, 20, 3e-4
 LM_TRAIN_PROFILE_STEPS, LM_TRAIN_DECODE_PROMPT, LM_TRAIN_DECODE_STEPS = 3, 64, 8
 PEAK_BF16_FLOPS = 989.4e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+# phase [15]: sharded LM training, [13](c)'s configuration (tinyllama-1.1b
+# at full width, batch 8 x 2048, accum_steps 2, lr 3e-4, seed 0) for
+# SHARD_STEPS steps with train()'s schedule for that many steps: (a)
+# train(model_axis=1) beside the step on a one-rank mesh's DTensors, bit
+# for bit; (b) two ranks on
+# the one card, mesh (data 1, model 2): the first loss within 1e-3
+# relative of (a)'s and each grad norm within 1e-2 (bf16 partial sums are
+# added in another order), and reduced f32 on the two ranks against one
+# rank within 1e-5 over 3 steps; (c) (b)'s params checkpointed, restored
+# on one rank and decoded SHARD_DECODE_STEPS greedy steps with K4
+SHARD_STEPS, SHARD_REDUCED_STEPS, SHARD_DECODE_STEPS, SHARD_TIMEOUT_S = 5, 3, 16, 300
+SHARD_LOSS_RTOL, SHARD_NORM_RTOL, SHARD_REDUCED_RTOL = 1e-3, 1e-2, 1e-5
 # device kernels of a train step by name: (kind, regex), first match wins
 TRAIN_KERNEL_KINDS = (("GEMM (cuBLAS)", r"gemm|xmma|nvjet|cutlass"), ("softmax", r"softmax"),
                       ("mask (where)", r"where"), ("cast f32 -> bf16", r"bfloat16_copy"),
@@ -1547,7 +1570,7 @@ def lm_train_phase(torch, dev, smi):
           f"DecodeEngine with K4 ({counts}; {L} x {LM_TRAIN_DECODE_STEPS} x 2 = {want}), tokens in the "
           f"vocabulary, {tps:.1f} tokens/s; first request {gen[:, 0].tolist()}")
     log(f"[13] LM training phase: {time.perf_counter() - t_phase:.1f} s")
-    return counts["decode_attn"]
+    return counts["decode_attn"], float(losses_c[0])
 
 
 def kinds_phase(torch, dev, arrays):
@@ -1689,31 +1712,61 @@ def training_phase(torch, dev, traces, arrays):
             f"({tr.total_cycles} cycles), {100 * (c - tr.cpi) / tr.cpi:+.1f}%")
 
 
-def run_cli(args, timeout):
-    """``python -m repro_torch ARGS`` as a child process on the card, in a
-    session of its own (a fleet's replicas are its children: a timeout
-    kills the whole group). Returns (exit code, parsed JSON of its
+def start_cli(args):
+    """``python -m repro_torch ARGS`` started as a child process on the
+    card, in a session of its own (a fleet's replicas are its children: a
+    timeout kills the whole group), its output into files, so a child that
+    runs beside others never waits on a full pipe. Returns (process, start
+    time, its stdout and stderr files)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out, err = (tempfile.TemporaryFile("w+", dir=ROOT / "build") for _ in range(2))
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch", *map(str, args)], env=env,
+                            stdout=out, stderr=err, text=True, start_new_session=True)
+    return proc, time.perf_counter(), out, err
+
+
+def finish_cli(started, timeout):
+    """Waits for a `start_cli` child. Returns (exit code, parsed JSON of its
     standard output or None, seconds, stderr tail)."""
     import os
     import signal
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "repro_torch", *map(str, args)], env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
+    proc, t0, out_f, err_f = started
     try:
-        out, err = proc.communicate(timeout=timeout)
+        proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise RuntimeError(f"python -m repro_torch {' '.join(map(str, args))} ran past {timeout} s")
+        proc.wait()
+        raise RuntimeError(f"python -m repro_torch {' '.join(map(str, proc.args[3:]))} ran past "
+                           f"{timeout} s")
     secs = time.perf_counter() - t0
+    out_f.seek(0)
+    err_f.seek(0)
+    out, err = out_f.read(), err_f.read()
+    out_f.close()
+    err_f.close()
     try:
         doc = json.loads(out)
     except json.JSONDecodeError:
         doc = None
     return proc.returncode, doc, secs, err[-3000:]
+
+
+def run_cli(args, timeout):
+    """`start_cli`, then `finish_cli`."""
+    return finish_cli(start_cli(args), timeout)
+
+
+def stop_cli(started):
+    """Kills a `start_cli` child's session if it still runs."""
+    import os
+    import signal
+
+    if started is not None and started[0].poll() is None:
+        os.killpg(started[0].pid, signal.SIGKILL)
+        started[0].wait()
 
 
 def pcts(samples):
@@ -1860,55 +1913,63 @@ def serving_phase(torch, dev, pcfg, params, arrays):
             f"{direct['n_lanes']}-lane batch: equal totals for {sum(a == b for a, b in zip(want, got))} "
             f"of {len(want)} workloads; not a gate)")
 
-        # -- the CLI as child processes: simulate --use-kernel, serve --jobs
-        tr_dir = Path(tmp) / "traces"
-        cli_traces = api.generate_traces(CLI_BENCHES, CLI_N, cache_dir=str(tr_dir))
-        want = SimNet(art, use_kernel=True, device=dev).simulate_many(cli_traces, n_lanes=CLI_LANES)
-        rc, out, secs, err = run_cli(
-            ["simulate", "--artifact", art_dir, "--use-kernel", "--bench", *CLI_BENCHES,
-             "-n", CLI_N, "--lanes", CLI_LANES, "--cache-dir", tr_dir], timeout=300)
-        check(rc == 0 and out is not None, f"python -m repro_torch simulate --use-kernel exits 0 "
-              f"in {secs:.1f} s {err if rc else ''}")
-        log(f"  CLI simulate: throughput_ips={out['result']['throughput_ips']:.1f} "
-            f"first_call_seconds={out['result']['first_call_seconds']:.3f} cache {out['result']['cache']}")
-        check([w["total_cycles"] for w in out["result"]["workloads"]] == [w.total_cycles for w in want],
-              f"CLI simulate totals equal in-process {[w.total_cycles for w in want]}")
-        jobs = [{"id": f"{m}-{b}", "bench": b, "n": CLI_N, "lanes": CLI_LANES,
-                 **({"model": "c3"} if m == "c3" else {})} for m in ("c3", "tf") for b in CLI_BENCHES]
-        jobs_file = Path(tmp) / "jobs.json"
-        jobs_file.write_text(json.dumps({"models": {"c3": str(art_dir)}, "jobs": jobs}))
-        sync = SimServe(device=dev)
-        sync.register("c3", art_dir)
-        names = dict(zip(CLI_BENCHES, cli_traces))
-        hs = [sync.submit(names[j["bench"]], j.get("model"), n_lanes=CLI_LANES, name=j["id"])
-              for j in jobs]
-        sync.drain()
-        want = [(j["id"], h.result().total_cycles) for j, h in zip(jobs, hs)]
-        rc, out, secs, err = run_cli(["serve", "--jobs", jobs_file, "--cache-dir", tr_dir], timeout=300)
-        check(rc == 0 and out is not None, f"python -m repro_torch serve --jobs exits 0 in "
-              f"{secs:.1f} s {err if rc else ''}")
-        check([(j["id"], j["result"]["total_cycles"]) for j in out["jobs"]] == want,
-              f"CLI serve --jobs totals equal in-process {want}")
-        log(f"  CLI serve --jobs: {out['stats']['batches']} batches, cache "
-            f"{ {k: out['stats']['cache'][k] for k in ('hits', 'misses', 'compile_seconds')} }")
+        # -- the CLI as child processes. The chaos drill (its own tiny
+        # models) and the 2-replica fleet run beside simulate --use-kernel
+        # and serve --jobs, whose times they share the card with
+        chaos = fleet = None
+        try:
+            chaos = start_cli(["chaos", "--quick", "--batch-timeout-s", CHAOS_WATCHDOG_S])
+            tr_dir = Path(tmp) / "traces"
+            cli_traces = api.generate_traces(CLI_BENCHES, CLI_N, cache_dir=str(tr_dir))
+            want = SimNet(art, use_kernel=True, device=dev).simulate_many(cli_traces, n_lanes=CLI_LANES)
+            rc, out, secs, err = run_cli(
+                ["simulate", "--artifact", art_dir, "--use-kernel", "--bench", *CLI_BENCHES,
+                 "-n", CLI_N, "--lanes", CLI_LANES, "--cache-dir", tr_dir], timeout=300)
+            check(rc == 0 and out is not None, f"python -m repro_torch simulate --use-kernel exits 0 "
+                  f"in {secs:.1f} s {err if rc else ''}")
+            log(f"  CLI simulate: throughput_ips={out['result']['throughput_ips']:.1f} "
+                f"first_call_seconds={out['result']['first_call_seconds']:.3f} cache {out['result']['cache']}")
+            check([w["total_cycles"] for w in out["result"]["workloads"]] == [w.total_cycles for w in want],
+                  f"CLI simulate totals equal in-process {[w.total_cycles for w in want]}")
+            jobs = [{"id": f"{m}-{b}", "bench": b, "n": CLI_N, "lanes": CLI_LANES,
+                     **({"model": "c3"} if m == "c3" else {})} for m in ("c3", "tf") for b in CLI_BENCHES]
+            jobs_file = Path(tmp) / "jobs.json"
+            jobs_file.write_text(json.dumps({"models": {"c3": str(art_dir)}, "jobs": jobs}))
+            fleet = start_cli(["fleet", "--replicas", FLEET_REPLICAS, "--jobs", jobs_file,
+                               "--cache-dir", tr_dir])
+            sync = SimServe(device=dev)
+            sync.register("c3", art_dir)
+            names = dict(zip(CLI_BENCHES, cli_traces))
+            hs = [sync.submit(names[j["bench"]], j.get("model"), n_lanes=CLI_LANES, name=j["id"])
+                  for j in jobs]
+            sync.drain()
+            want = [(j["id"], h.result().total_cycles) for j, h in zip(jobs, hs)]
+            rc, out, secs, err = run_cli(["serve", "--jobs", jobs_file, "--cache-dir", tr_dir], timeout=300)
+            check(rc == 0 and out is not None, f"python -m repro_torch serve --jobs exits 0 in "
+                  f"{secs:.1f} s {err if rc else ''}")
+            check([(j["id"], j["result"]["total_cycles"]) for j in out["jobs"]] == want,
+                  f"CLI serve --jobs totals equal in-process {want}")
+            log(f"  CLI serve --jobs: {out['stats']['batches']} batches, cache "
+                f"{ {k: out['stats']['cache'][k] for k in ('hits', 'misses', 'compile_seconds')} }")
 
-        # -- a 2-replica fleet on the one card, then the chaos drill
-        rc, out, secs, err = run_cli(["fleet", "--replicas", FLEET_REPLICAS, "--jobs", jobs_file,
-                                      "--cache-dir", tr_dir], timeout=600)
-        check(rc == 0 and out is not None, f"python -m repro_torch fleet --replicas {FLEET_REPLICAS} "
-              f"exits 0 in {secs:.1f} s {err if rc else ''}")
-        log(f"  fleet: healthz {out['healthz']['status']}, {out['healthz']['healthy_replicas']} healthy "
-            f"replicas, jobs on {[j['replica'] for j in out['jobs']]}, router "
-            f"{ {k: out['stats']['router'][k] for k in ('jobs_routed', 'failovers', 'ejections')} }")
-        check([(j["id"], j["result"]["total_cycles"]) for j in out["jobs"]] == want,
-              "fleet totals equal the synchronous run's")
-        rc, out, secs, err = run_cli(["chaos", "--quick", "--batch-timeout-s", CHAOS_WATCHDOG_S],
-                                     timeout=600)
-        single = (out or {}).get("single", {})
-        log(f"  chaos --quick: exit {rc} in {secs:.1f} s; checks {single.get('checks')}; counters "
-            f"{single.get('counters')}")
-        check(rc == 0 and out["ok"] and all(single["checks"].values()),
-              f"python -m repro_torch chaos --quick passes every check {err if rc else ''}")
+            # -- the 2-replica fleet on the one card, and the chaos drill
+            rc, out, secs, err = finish_cli(fleet, timeout=600)
+            check(rc == 0 and out is not None, f"python -m repro_torch fleet --replicas {FLEET_REPLICAS} "
+                  f"exits 0 in {secs:.1f} s {err if rc else ''}")
+            log(f"  fleet: healthz {out['healthz']['status']}, {out['healthz']['healthy_replicas']} healthy "
+                f"replicas, jobs on {[j['replica'] for j in out['jobs']]}, router "
+                f"{ {k: out['stats']['router'][k] for k in ('jobs_routed', 'failovers', 'ejections')} }")
+            check([(j["id"], j["result"]["total_cycles"]) for j in out["jobs"]] == want,
+                  "fleet totals equal the synchronous run's")
+            rc, out, secs, err = finish_cli(chaos, timeout=600)
+            single = (out or {}).get("single", {})
+            log(f"  chaos --quick: exit {rc} in {secs:.1f} s; checks {single.get('checks')}; counters "
+                f"{single.get('counters')}")
+            check(rc == 0 and out["ok"] and all(single["checks"].values()),
+                  f"python -m repro_torch chaos --quick passes every check {err if rc else ''}")
+        finally:
+            stop_cli(chaos)
+            stop_cli(fleet)
 
     # -- a one-shot simulate (cold cache) at three chunk caps
     firsts = {}
@@ -2108,6 +2169,322 @@ def mesh_phase(torch, dev, pcfg, params, arrays, ring, k1_launches):
     log(f"[14] lane mesh phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def shard_reduced_losses(torch, dev, mesh):
+    """[15](b)'s reduced f32 run: tinyllama-1.1b at reduced width, masters
+    from a CPU generator, SHARD_REDUCED_STEPS Adam steps at accum_steps 2;
+    on ``mesh`` (DTensors placed by the train rules) or, with None,
+    unsharded. Returns the losses."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_reduced_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.training.optimizer import AdamConfig, adam_init, adam_state_specs
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = get_reduced_config(LM_TRAIN_ARCH, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(SEED), device=dev, masters=True)
+    opt = adam_init(params)
+    kw = {}
+    if mesh is not None:
+        rules, specs = sh.rules_for(cfg, "train"), model.param_specs()
+        params = sh.shard_tree(params, specs, rules, mesh)
+        opt = sh.shard_tree(opt, adam_state_specs(specs), rules, mesh)
+        kw = dict(constrain=sh.make_constrain(mesh, rules), layer_specs=model.layer_specs(),
+                  grad_shardings=sh.spec_tree_to_shardings(specs, rules, mesh))
+    step = make_train_step(model, AdamConfig(lr=TRAIN_EXACT_LR), accum_steps=2, **kw)
+    rng = np.random.default_rng(SEED)
+    losses = []
+    for _ in range(SHARD_REDUCED_STEPS):
+        b = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)).to(dev)}
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def shard_rank(torch, rank, init, ckpt_dir):
+    """One rank of [15](b), run by this process (rank 0) and the follower:
+    joins the two-rank group (`launch.mesh.init_ranks`), trains the
+    reduced f32 model on a (1, 2) mesh, then tinyllama-1.1b at full width
+    through ``train(model_axis=2)`` with its collectives counted, saves
+    the final params (rank 0 writes) and gathers them. Returns its
+    numbers, and the gathered params on rank 0."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import train
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime.sharding import full_tree
+
+    backend = mesh_mod.init_ranks(rank, 2, init, "cuda", timeout_s=SHARD_TIMEOUT_S)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        reduced_losses = shard_reduced_losses(
+            torch, dev, mesh_mod.make_mesh((1, 2), ("data", "model"), "cuda"))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh_mod.EXCHANGED.clear()
+        t0 = time.perf_counter()
+        with mesh_mod.CollectiveCounter() as counter:
+            res = train(LM_TRAIN_ARCH, reduced=False, steps=SHARD_STEPS, batch=LM_TRAIN_BATCH,
+                        seq=LM_TRAIN_SEQ, lr=LM_TRAIN_LR, model_axis=2, device=dev, log_every=1)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        exchanged = dict(mesh_mod.EXCHANGED)
+        t0 = time.perf_counter()
+        CheckpointManager(ckpt_dir).save(SHARD_STEPS, {"params": res["params"]})
+        save_s = time.perf_counter() - t0
+        # the serving storage (bf16 matrices) of the shards, gathered
+        t0 = time.perf_counter()
+        full = full_tree(build_model(get_config(LM_TRAIN_ARCH)).to_storage(res["params"]))
+        gather_s = time.perf_counter() - t0
+        out = {"rank": rank, "backend": backend, "mesh": res["mesh"], "losses": res["losses"],
+               "norms": [m["grad_norm"] for m in res["metrics"]],
+               "step_s": list(res["monitor"].history),
+               "wall": wall, "peak": peak, "calls": dict(counter.calls), "bytes": dict(counter.bytes),
+               "exchanged": exchanged, "reduced": reduced_losses, "save_s": save_s, "gather_s": gather_s}
+        if rank == 0:
+            out["full"] = full
+        dist.barrier()
+    finally:
+        mesh_mod.close_peer_buffers()
+        dist.destroy_process_group()
+    return out
+
+
+def shard_follower(rank, init, ckpt_dir, queue):
+    """Phase [15](b)'s second rank, started with the spawn method."""
+    import torch
+
+    cuda_flags(torch)
+    try:
+        queue.put(shard_rank(torch, rank, init, ckpt_dir))
+    except BaseException as e:  # the controller reports it and fails
+        queue.put({"rank": rank, "error": repr(e)})
+        raise
+
+
+def sharded_train_phase(torch, dev, smi, first_loss_13c):
+    """Phase [15]: sharded LM training on the card. (a) train(model_axis=1)
+    on a one-rank mesh beside the unsharded step, in turns; (b) two ranks
+    on the one card; (c) (b)'s params restored on one rank and decoded
+    with K4. See the SHARD_* constants."""
+    import multiprocessing
+    import statistics
+
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import extras_for, train
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.serving.engine import DecodeEngine, lm_decoder
+    from repro_torch.training.optimizer import AdamConfig, adam_init, adam_state_specs
+    from repro_torch.training.train_loop import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_TRAIN_ARCH)
+    model = build_model(cfg)
+    B, S, L = LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.n_layers
+    log(f"[15] sharded LM training: {LM_TRAIN_ARCH} at full width ({L} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, vocab {cfg.vocab}), {cfg.dtype} on f32 masters, "
+        f"remat, accum_steps {cfg.accum_steps}, {B} x {S} tokens a step, lr {LM_TRAIN_LR}, seed {SEED}, "
+        f"{SHARD_STEPS} steps ({smi})")
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    init = f"file://{work.name}/store"
+    ckpt = Path(work.name) / "ckpt"
+    mp = multiprocessing.get_context("spawn")
+    queue = mp.Queue()
+    # (b)'s follower starts now: it reaches the card while (a) runs, then
+    # waits at the rendezvous of the two-rank group
+    follower = mp.Process(target=shard_follower, args=(1, init, str(ckpt), queue), daemon=True)
+    follower.start()
+    try:
+        # -- (a) train(model_axis=1) (one rank: plain tensors, the unsharded
+        # step) beside the same step on DTensors of a one-rank mesh, in turns
+        acfg = AdamConfig(lr=LM_TRAIN_LR, warmup_steps=max(SHARD_STEPS // 10, 1),
+                          decay_steps=SHARD_STEPS)
+        mesh1 = mesh_mod.make_host_mesh()
+        rules, specs = sh.rules_for(cfg, "train"), model.param_specs()
+
+        def mesh_step():
+            """make_train_step on mesh1's DTensors, fed as train() feeds its step."""
+            params = model.init(torch.Generator(dev).manual_seed(0), device=dev, masters=True)
+            params = sh.shard_tree(params, specs, rules, mesh1)
+            opt = adam_init(params)
+            opt["step"] = sh.place_owned(opt["step"], *sh.spec_tree_to_shardings(
+                adam_state_specs(specs), rules, mesh1)["step"])
+            step = make_train_step(model, acfg, constrain=sh.make_constrain(mesh1, rules),
+                                   accum_steps=cfg.accum_steps,
+                                   grad_shardings=sh.spec_tree_to_shardings(specs, rules, mesh1),
+                                   layer_specs=model.layer_specs())
+            loader = TokenLoader(cfg.vocab, B, S, extras=extras_for(cfg))
+            hist, times = [], []
+            try:
+                for _ in range(SHARD_STEPS):
+                    b = next(loader)
+                    t0 = time.perf_counter()
+                    params, opt, m = step(params, opt, {k: torch.from_numpy(v).to(dev)
+                                                        for k, v in b.items()})
+                    hist.append({k: float(v) for k, v in m.items()})
+                    times.append(time.perf_counter() - t0)
+            finally:
+                loader.close()
+            return hist, times
+
+        runs = {}
+        for turn in ("train(model_axis=1)", "one-rank mesh"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            if turn == "one-rank mesh":
+                hist, times = mesh_step()
+            else:
+                res = train(LM_TRAIN_ARCH, reduced=False, steps=SHARD_STEPS, batch=B, seq=S,
+                            lr=LM_TRAIN_LR, model_axis=1, device=dev, log_every=0)
+                check(res["mesh"] == (1, 1) and not any(
+                    isinstance(t, DTensor) for t in tensors(res["params"])),
+                      "(a) train(model_axis=1) runs at mesh (1, 1) on plain tensors")
+                hist, times = res["metrics"], list(res["monitor"].history)
+                del res
+            runs[turn] = (np.array([h["loss"] for h in hist]), np.array([h["grad_norm"] for h in hist]),
+                          1e3 * statistics.median(times[2:]),
+                          torch.cuda.max_memory_allocated(dev) / 1e9)
+            log(f"  (a) {turn}: losses {runs[turn][0].tolist()}, grad norms {runs[turn][1].round(4).tolist()}; "
+                f"step ms {np.round(1e3 * np.array(times), 1).tolist()}: "
+                f"{runs[turn][2]:.1f} ms a step (median after the first 2), "
+                f"{B * S / runs[turn][2] * 1e3:.0f} tokens/s, peak {runs[turn][3]:.2f} GB ({smi})")
+        (lu, nu, msu, _), (lm, nm, msm, peak_a) = runs["train(model_axis=1)"], runs["one-rank mesh"]
+        check(np.array_equal(lu, lm) and np.array_equal(nu, nm) and lm[0] == first_loss_13c,
+              f"(a) train(model_axis=1) = the step on a one-rank mesh's DTensors bit for bit over "
+              f"{SHARD_STEPS} steps (losses and grad norms), its first loss = [13](c)'s {first_loss_13c}")
+        # what DTensor's dispatch adds on the host: one profiled step each
+        params = model.init(torch.Generator(dev).manual_seed(0), device=dev, masters=True)
+        opt = adam_init(params)
+        loader = TokenLoader(cfg.vocab, B, S, extras=extras_for(cfg))
+        try:
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in next(loader).items()}
+        finally:
+            loader.close()
+        steps = {
+            "unsharded": (make_train_step(model, acfg, accum_steps=cfg.accum_steps), params, opt),
+            "one-rank mesh": (make_train_step(
+                model, acfg, constrain=sh.make_constrain(mesh1, rules), accum_steps=cfg.accum_steps,
+                grad_shardings=sh.spec_tree_to_shardings(specs, rules, mesh1),
+                layer_specs=model.layer_specs()),
+                sh.shard_tree(params, specs, rules, mesh1),
+                sh.shard_tree(opt, adam_state_specs(specs), rules, mesh1))}
+        for name, (fn, p, o) in steps.items():
+            prof = profiled(torch, lambda: fn(p, o, batch), 1)
+            if prof is None:
+                log(f"  (a) {name}: the profiler reported no device time (host gaps not measured)")
+            else:
+                log(f"  (a) {name}, one profiled step: wall {prof['wall']:.1f} ms, device busy "
+                    f"{prof['busy']:.1f} ms ({100 * prof['busy'] / prof['wall']:.1f}%), host gaps "
+                    f"{prof['span'] - prof['busy']:.1f} ms, {prof['ops']:.0f} device operations")
+        del steps, params, opt, batch, fn, p, o
+        loader = TokenLoader(cfg.vocab, B, S)
+        try:
+            t0 = time.perf_counter()
+            loader._make_batch(0)
+            log(f"  (a) one batch of the token loader (its thread beside each step of train()): "
+                f"{1e3 * (time.perf_counter() - t0):.1f} ms of host time")
+        finally:
+            loader.close()
+        torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # -- (b) two ranks on the one card: this process rank 0
+        reduced_one = shard_reduced_losses(torch, dev, None)
+        mine = shard_rank(torch, 0, init, str(ckpt))
+        theirs = None
+        deadline = time.perf_counter() + SHARD_TIMEOUT_S
+        while theirs is None and time.perf_counter() < deadline:
+            try:
+                theirs = queue.get(timeout=5)
+            except Exception:  # queue.Empty: the follower may have died
+                if not follower.is_alive():
+                    break
+        check(theirs is not None, f"the follower reported (exit code {follower.exitcode})")
+        follower.join(120)
+        check("error" not in theirs and follower.exitcode == 0,
+              f"the follower ran its rank to the end ({theirs.get('error', 'exit 0')})")
+        full = mine.pop("full")
+        lb, nb = np.array(mine["losses"]), np.array(mine["norms"])
+        ms_b = 1e3 * statistics.median(mine["step_s"][2:])
+        log(f"  (b) two ranks on {dev}, mesh {mine['mesh']}, backend {mine['backend']}: losses "
+            f"{lb.tolist()}, grad norms {nb.round(4).tolist()}; step ms "
+            f"{np.round(1e3 * np.array(mine['step_s']), 1).tolist()}: {ms_b:.1f} ms a step (median after the "
+            f"first 2; rank 1 {1e3 * statistics.median(theirs['step_s'][2:]):.1f}), "
+            f"{B * S / ms_b * 1e3:.0f} tokens/s; wall {mine['wall']:.1f} s; peak memory a rank "
+            f"{mine['peak'] / 1e9:.2f} / {theirs['peak'] / 1e9:.2f} GB (one rank: {peak_a:.2f}); no speed "
+            f"claimed: both ranks share one card's SMs ({smi})")
+        for r in (mine, theirs):
+            per_step = {k: (r["calls"][k] / SHARD_STEPS, r["bytes"][k] / SHARD_STEPS) for k in r["calls"]}
+            log(f"  (b) rank {r['rank']} collectives a step (calls, bytes handed in): "
+                + ", ".join(f"{k} {c:.0f} x, {b / 1e9:.3f} GB" for k, (c, b) in sorted(per_step.items()))
+                + f"; total {sum(r['bytes'].values()) / SHARD_STEPS / 1e9:.3f} GB a step; through the "
+                f"ranks' device buffers {({k: f'{v / SHARD_STEPS / 1e9:.3f} GB a step' for k, v in r['exchanged'].items()})}")
+        log(f"  (b) checkpoint of the f32 params (gathered, rank 0 writes): {mine['save_s']:.1f} s; "
+            f"their bf16 storage gathered in memory: {mine['gather_s']:.1f} s")
+        check(mine["losses"] == theirs["losses"] and mine["mesh"] == (1, 2),
+              "(b) both ranks return the same losses on the (1, 2) mesh")
+        rel0 = abs(lb[0] - lm[0]) / abs(lm[0])
+        reln = float(np.max(np.abs(nb - nm) / np.abs(nm)))
+        check(rel0 <= SHARD_LOSS_RTOL and reln <= SHARD_NORM_RTOL and np.isfinite(lb).all()
+              and lb[-1] < lb[0],
+              f"(b) first loss within {SHARD_LOSS_RTOL} of (a)'s ({rel0:.2e}), every grad norm within "
+              f"{SHARD_NORM_RTOL} ({reln:.2e}), losses finite and falling")
+        relr = float(np.max(np.abs(np.array(mine["reduced"]) - reduced_one) / np.abs(reduced_one)))
+        check(mine["reduced"] == theirs["reduced"] and relr <= SHARD_REDUCED_RTOL,
+              f"(b) reduced f32 on two ranks = one rank over {SHARD_REDUCED_STEPS} steps: "
+              f"{np.round(mine['reduced'], 6).tolist()} vs {np.round(reduced_one, 6).tolist()} "
+              f"(max rel diff {relr:.2e} <= {SHARD_REDUCED_RTOL})")
+
+        # -- (c) the checkpoint restored on one rank, decoded with K4, and
+        # the params gathered in memory decoded the same way
+        state, step = CheckpointManager(ckpt).restore()
+        prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (B, LM_TRAIN_DECODE_PROMPT)).astype(np.int32)).to(dev)
+        tokens, counts = {}, {}
+        for name, params in (("restored", model.params_from_numpy(state["params"], dev)),
+                             ("gathered", full)):
+            with torch.no_grad():
+                logits, st = model.prefill(params, {"tokens": prompts})
+            first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            ops.reset_launches()
+            tokens[name], _, tps = DecodeEngine(lm_decoder(model, use_kernel=True), params).generate(
+                model.rehome_state(st, LM_TRAIN_DECODE_PROMPT + SHARD_DECODE_STEPS), first,
+                SHARD_DECODE_STEPS)
+            counts[name] = dict(ops.launches)
+            log(f"  (c) {name} params: {SHARD_DECODE_STEPS} greedy steps at {tps:.1f} tokens/s, "
+                f"K4 launches {counts[name]}")
+            del params, logits, st
+        want = L * SHARD_DECODE_STEPS * 2
+        check(step == SHARD_STEPS and counts["restored"].get("decode_attn") == want
+              and sum(counts["restored"].values()) == want
+              and torch.equal(tokens["restored"], tokens["gathered"]),
+              f"(c) (b)'s checkpoint (step {step}) restored unsharded decodes through DecodeEngine with "
+              f"K4 in every layer ({L} x {SHARD_DECODE_STEPS} a pass, warm-up and timed: {want}) to the "
+              f"tokens of (b)'s params gathered in memory; first request {tokens['restored'][:, 0].tolist()}")
+    finally:
+        if follower is not None and follower.is_alive():
+            follower.kill()
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        work.cleanup()
+    log(f"[15] sharded LM training phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts["restored"]["decode_attn"]
+
+
 def ptxas_entries(log):
     """Per kernel entry in nvcc's -Xptxas -v output: registers, static shared
     memory, stack frame and spills (stores, loads) in bytes."""
@@ -2191,28 +2568,48 @@ def main():
                   f"{p.smem_bytes} B of dynamic shared memory (the kernel's count: {c_smem}), "
                   f"{p.blocks_per_sm} blocks an SM")
 
+    marks = [("[1]-[2] set-up and builds", time.perf_counter())]
+
+    def mark(name):  # each phase's wall seconds, logged at the end
+        marks.append((name, time.perf_counter()))
+
     pcfg, params, rows, x = kernel_phase(torch, dev)
     rows += conv_decode_kernel_phase(torch, dev, params, x)
+    mark("[3] kernels")
     teacher_forced_phase(torch, dev)
     routes, launches, traces, arrays = predicted_phase(torch, dev, pcfg, params)
     ring = routes["ring+fused_step"][1]
+    mark("[4]-[5] teacher-forced and predicted packs")
     program_phase(torch, dev, routes, arrays, pcfg)
     launches["conv2s"] = conv2s_path_phase(torch, params, x)
     profile_phase(torch, dev, routes["ring+fused_step"][0], arrays)
+    mark("[5b]-[6] programs, conv2s path, profile")
     del x, routes
     lm = lm_phase(torch, dev)
     launches["decode_attn"] = lm["launches"]
     decode_exactness_phase(torch, dev, lm)
+    mark("[7]-[8] gemma3-4b decode")
     del lm
     kinds_phase(torch, dev, arrays)
+    mark("[9] predictor kinds")
     training_phase(torch, dev, traces, arrays)
+    mark("[10] training")
     serving_phase(torch, dev, pcfg, params, arrays)
+    mark("[11] serving")
     del traces
     families_phase(torch, dev)
+    mark("[12] LM families")
     ops.reset_launches()
-    k4_served = lm_train_phase(torch, dev, smi)
+    k4_served, first_loss_13c = lm_train_phase(torch, dev, smi)
     log(f"[13] K4 launches serving the trained model: {k4_served}")
+    mark("[13] LM training")
     mesh_phase(torch, dev, pcfg, params, arrays, ring, launches["fused_step"])
+    mark("[14] lane mesh")
+    k4_sharded = sharded_train_phase(torch, dev, smi, first_loss_13c)
+    log(f"[15] K4 launches decoding the two-rank model: {k4_sharded}")
+    mark("[15] sharded LM training")
+    log("phase wall seconds: " + ", ".join(
+        f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 
     log(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s ({smi})")
 

@@ -8,7 +8,11 @@ a json manifest (step, keys, the payload's sha256, user metadata), in
 may be numpy arrays or tensors on any device; they are written as numpy
 arrays. ``restore`` returns numpy leaves, or tensors on ``device``; with
 ``shardings`` it places the listed leaves on a mesh as DTensors (elastic
-restore onto another topology).
+restore onto another topology). A tree of DTensors (sharded training) is
+saved as the full arrays, once: every rank of the mesh calls ``save``
+(each leaf is gathered, a collective) and rank 0 writes. A checkpoint so
+written restores on any mesh, in one process, and into the reference's
+``CheckpointManager``.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor import DTensor
 
 from repro_torch._device import DeviceLike
 
@@ -88,6 +93,8 @@ def _unflatten(flat: Dict[str, Any]):
 
 
 def _to_host(v) -> np.ndarray:
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return np.asarray(v)
@@ -103,9 +110,13 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, tree, metadata: Optional[dict] = None):
-        """Atomic: write to tmp dir, fsync-rename into place, prune old."""
+        """Atomic: write to tmp dir, fsync-rename into place, prune old.
+        With DTensor leaves every rank calls it and rank 0 writes."""
         flat = _flatten(tree)
+        sharded = any(isinstance(v, DTensor) for v in flat.values())
         host = {k: _to_host(v) for k, v in flat.items()}
+        if sharded and dist.get_rank() != 0:
+            return
         if self._thread is not None:
             self._thread.join()  # one in-flight save at a time
 
@@ -205,10 +216,12 @@ class CheckpointManager:
         z = np.load(io.BytesIO(raw))
         targets = {} if shardings is None else _flatten_shardings(shardings)
 
+        from repro_torch.runtime.sharding import place_owned
+
         def leaf(k, v):
             if k in targets:
                 mesh, placements = targets[k]
-                return distribute_tensor(torch.from_numpy(v).to(mesh.device_type), mesh, placements)
+                return place_owned(torch.from_numpy(v).to(mesh.device_type), mesh, placements)
             return v if device is None else torch.from_numpy(v).to(device)
 
         return _unflatten({k: leaf(k, z[k]) for k in z.files}), step

@@ -1,39 +1,56 @@
 """Fault-tolerant training launcher — the port of ``repro.launch.train``.
 
-Ties together: arch config → model (f32 masters) → train step → data
-pipeline → checkpoint/restart → straggler monitor, on one device
-(``device``, default ``cuda``; asking for ``cuda`` without a GPU raises).
-The reference's mesh (``model_axis``, sharded params and optimizer state)
-comes with the LM half of the port's mesh (ROADMAP.md Queue 1 item
-12a-LM): ``model_axis`` other than 1 raises ``NotImplementedError`` until
-then.
+Ties together: arch config → model (f32 masters) → mesh (elastic choice)
+→ sharded train step → data pipeline → checkpoint/restart → straggler
+monitor, on ``device`` (default ``cuda``; asking for ``cuda`` without a
+GPU raises).
 
-A checkpoint holds ``{"params", "opt"}`` in the reference's format; a run
-resumes from the newest one in ``ckpt_dir``, whichever package wrote it
-(the reference's stacked layers or the port's per-layer lists). As in the
-reference, the token loader starts at data step 0 on every run, so a run
-resumed at step k trains on batches 0, 1, ... again.
+The mesh spans the ranks of the default process group: ``(world //
+model_axis, model_axis)`` over ``("data", "model")``
+(`runtime.elastic.choose_mesh`, which clamps ``model_axis`` to the world
+as the reference does). Under ``torchrun`` (or any initialised group of
+several ranks) every rank runs `train` on the same batches and holds its
+shards of the params and Adam's state, placed by the rule table
+``rules_for(cfg, "train")``. Rank 0 prints and writes the checkpoints;
+every rank returns the same losses. With one rank (no group, or a group
+of one) the mesh is (1, 1) and `train` keeps plain tensors and the
+unsharded step: DTensors on one rank give the same bits, slower (their
+dispatch costs host time a step).
+
+A checkpoint holds ``{"params", "opt"}`` in the reference's format, the
+full arrays; a run resumes from the newest one in ``ckpt_dir`` on any
+mesh, whichever package wrote it (the reference's stacked layers or the
+port's per-layer lists). As in the reference, the token loader starts at
+data step 0 on every run, so a run resumed at step k trains on batches
+0, 1, ... again.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --reduced --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch tinyllama-1.1b --reduced --model-axis 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import DEVICE_KINDS, DeviceLike, resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.registry import get_config, get_reduced_config
 from repro_torch.data.pipeline import TokenLoader
+from repro_torch.launch.mesh import init_ranks
 from repro_torch.models.registry import build_model
+from repro_torch.runtime import elastic
+from repro_torch.runtime import sharding as sh
 from repro_torch.runtime.straggler import StragglerMonitor
-from repro_torch.training.optimizer import AdamConfig, adam_init
+from repro_torch.training.optimizer import AdamConfig, adam_init, adam_state_specs
 from repro_torch.training.train_loop import make_train_step
 
 
@@ -54,20 +71,35 @@ def extras_for(cfg, n_patches=8):
     return extras
 
 
-def restore_state(mgr: CheckpointManager, model, device, like):
+def restore_state(mgr: CheckpointManager, model, device, like, shardings=None):
     """The newest checkpoint of ``mgr`` as (params, opt state, step) on
     ``device``, in the structure of ``like`` (the model's params): f32
     masters, Adam's ``m`` and ``v`` in the params' structure, its
     ``step``. Takes the port's per-layer lists and the reference's stacked
-    or ``layer_i`` blocks."""
+    or ``layer_i`` blocks. With ``shardings`` ({"params": ..., "opt":
+    ...}, `runtime.sharding.spec_tree_to_shardings`'s) the state comes
+    back placed on their mesh: a checkpoint in the port's layout through
+    ``restore(shardings=)``, the reference's layout through
+    ``params_from_numpy`` and then its placements."""
+    keys = mgr.read_manifest()["keys"]
+    if shardings is not None and any(k.startswith("params/") and "/#" in k for k in keys):
+        state, step = mgr.restore(shardings=shardings)
+        return (tree_map(lambda _, r: r, like, state["params"]),
+                {k: tree_map(lambda _, r: r, like, state["opt"][k]) for k in ("m", "v")}
+                | {"step": state["opt"]["step"]}, step)
     state, step = mgr.restore()
 
-    def masters(tree):
-        return tree_map(lambda _, r: r, like, model.params_from_numpy(tree, device, masters=True))
+    def masters(tree, sharding):
+        t = tree_map(lambda _, r: r, like, model.params_from_numpy(tree, device, masters=True))
+        return t if sharding is None else tree_map(lambda x, s: sh.place_owned(x, *s), t, sharding)
 
-    opt = {"m": masters(state["opt"]["m"]), "v": masters(state["opt"]["v"]),
+    p_sh, opt_sh = (None, {"m": None, "v": None}) if shardings is None else (
+        shardings["params"], shardings["opt"])
+    opt = {"m": masters(state["opt"]["m"], opt_sh["m"]), "v": masters(state["opt"]["v"], opt_sh["v"]),
            "step": torch.from_numpy(np.asarray(state["opt"]["step"])).to(device)}
-    return masters(state["params"]), opt, step
+    if shardings is not None:
+        opt["step"] = sh.place_owned(opt["step"], *opt_sh["step"])
+    return masters(state["params"], p_sh), opt, step
 
 
 def train(
@@ -87,26 +119,39 @@ def train(
 ):
     """Returns the reference's ``{"losses", "final_loss", "monitor"}``
     and, the port's own, ``"metrics"`` (each step's metrics as floats),
-    ``"params"`` and ``"opt"`` (the final masters and Adam state)."""
-    if model_axis != 1:
-        raise NotImplementedError("model_axis > 1 needs the LM half of the port's device mesh "
-                                  "(ROADMAP.md Queue 1 item 12a-LM)")
+    ``"mesh"`` (its shape), ``"params"`` and ``"opt"`` (the final masters
+    and Adam state: DTensors on a mesh of several ranks, else plain
+    tensors)."""
     dev = resolve_device(device)
     cfg = get_reduced_config(arch) if reduced else get_config(arch)
     if accum_steps is not None:
         cfg = dataclasses.replace(cfg, accum_steps=accum_steps)
     model = build_model(cfg)
-
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    lead = world == 1 or dist.get_rank() == 0
+    plan = elastic.choose_mesh(world, model_axis=model_axis, pod_size=1 << 30)
     params = model.init(torch.Generator(dev).manual_seed(0), device=dev, masters=True)
+    shardings, sharded = None, {}
+    if plan.shape != (1, 1):
+        mesh = elastic.build(plan, dev.type)
+        rules, pspecs = sh.rules_for(cfg, "train"), model.param_specs()
+        shardings = {"params": sh.spec_tree_to_shardings(pspecs, rules, mesh),
+                     "opt": sh.spec_tree_to_shardings(adam_state_specs(pspecs), rules, mesh)}
+        params = sh.shard_tree(params, pspecs, rules, mesh)
+        sharded = dict(constrain=sh.make_constrain(mesh, rules),
+                       grad_shardings=shardings["params"], layer_specs=model.layer_specs())
     opt = adam_init(params)
+    if shardings is not None:
+        opt["step"] = sh.place_owned(opt["step"], *shardings["opt"]["step"])
     acfg = AdamConfig(lr=lr, warmup_steps=max(steps // 10, 1), decay_steps=steps)
-    step_fn = make_train_step(model, acfg, accum_steps=cfg.accum_steps)
+    step_fn = make_train_step(model, acfg, accum_steps=cfg.accum_steps, **sharded)
 
     mgr = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
     start_step = 0
     if mgr and mgr.latest_step() is not None:
-        params, opt, start_step = restore_state(mgr, model, dev, params)
-        print(f"[train] restored step {start_step} from {ckpt_dir}")
+        params, opt, start_step = restore_state(mgr, model, dev, params, shardings)
+        if lead:
+            print(f"[train] restored step {start_step} from {ckpt_dir}")
 
     loader = TokenLoader(cfg.vocab, batch, seq, extras=extras_for(cfg))
     monitor = StragglerMonitor()
@@ -121,7 +166,7 @@ def train(
             dt = time.perf_counter() - t0
             monitor.record(step, dt)
             losses.append(history[-1]["loss"])
-            if log_every and step % log_every == 0:
+            if lead and log_every and step % log_every == 0:
                 print(
                     f"[train] step {step} loss {losses[-1]:.4f} "
                     f"grad_norm {history[-1]['grad_norm']:.3f} {dt*1000:.0f}ms"
@@ -134,7 +179,7 @@ def train(
     finally:
         loader.close()
     return {"losses": losses, "final_loss": losses[-1], "monitor": monitor,
-            "metrics": history, "params": params, "opt": opt}
+            "metrics": history, "mesh": plan.shape, "params": params, "opt": opt}
 
 
 def main(argv=None):
@@ -149,12 +194,18 @@ def main(argv=None):
     ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--device", choices=DEVICE_KINDS, default="cuda")
     args = ap.parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        # under torchrun: one rank of its world (the env:// rendezvous)
+        init_ranks(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), "env://", args.device)
     res = train(
         args.arch, reduced=args.reduced, steps=args.steps, batch=args.batch,
         seq=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir, model_axis=args.model_axis,
         device=args.device,
     )
-    print(f"final loss: {res['final_loss']:.4f}")
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(f"final loss: {res['final_loss']:.4f}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -7,23 +7,26 @@ then the MLP). The decode state is the reference's: ``pos`` and one dict
 a layer, ``{"k", "v"}`` (a ring of ``min(T, window)`` positions) for an
 attention layer and ``{"h", "conv"}`` (f32) for a recurrent one. A decode
 step writes every layer's state in place and returns a state that shares
-the tensors.
+the tensors. ``param_specs(cfg)`` and the ``constrain`` hook are
+`repro_torch.models.lm`'s; a mixer's input is constrained to ``("batch",
+None, None)`` (``seq`` gathered) since the RG-LRU scan, the causal conv
+and the attention mask run over the whole sequence.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.lm import (embed_scale, layer_list, rehome_into, remat, to_storage,
-                                  tree_from_numpy)
+from repro_torch.models.lm import (embed_scale, layer_list, layer_spec, rehome_into, remat,
+                                  to_storage, tree_from_numpy)
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import ssm
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.init import embed_init, split_keys
 from repro_torch.nn.layers import embed as embed_lookup
-from repro_torch.nn.layers import gated_mlp, gated_mlp_params
+from repro_torch.nn.layers import embed_specs, gated_mlp, gated_mlp_params, gated_mlp_specs
 from repro_torch.nn.rope import apply_rope
-from repro_torch.nn.transformer import norm_apply, norm_params
+from repro_torch.nn.transformer import _noop_constrain, norm_apply, norm_params, norm_specs, residual
 
 
 def _dtype(cfg):
@@ -54,6 +57,22 @@ def init_hybrid(generator: torch.Generator, cfg, device: DeviceLike = None, mast
     return p
 
 
+def param_specs(cfg) -> dict:
+    """The ShardSpec tree of `init_hybrid`'s params (the reference's
+    ``layer_i`` specs as the list ``blocks``)."""
+    blocks = []
+    for i in range(cfg.n_layers):
+        ls = {"ln1": norm_specs(cfg)}
+        if cfg.is_attn_layer(i):
+            ls["attn"] = attn_lib.attention_specs()
+        else:
+            ls["rec"] = ssm.recurrent_block_specs()
+        ls["ln2"] = norm_specs(cfg)
+        ls["mlp"] = gated_mlp_specs()
+        blocks.append(ls)
+    return {"embed": embed_specs(), "blocks": blocks, "final_norm": norm_specs(cfg)}
+
+
 def params_from_numpy(tree, cfg, device: DeviceLike = None, masters=False) -> dict:
     """The reference's ``init_hybrid`` params (``{"layer_i": ...}``
     blocks) as the port's, on ``device``, in their storage dtypes (f32
@@ -68,9 +87,9 @@ def _embed(params, cfg, tokens, dtype):
     return embed_lookup(params["embed"], tokens, dtype=dtype) * embed_scale(cfg, dtype)
 
 
-def _logits(params, cfg, x, dtype):
+def _logits(params, cfg, x, dtype, constrain=_noop_constrain):
     x = norm_apply(cfg, params["final_norm"], x, dtype)
-    return x @ params["embed"]["w"].to(dtype).T
+    return constrain(x @ params["embed"]["w"].to(dtype).T, ("batch", None, "vocab"))
 
 
 def _attn_seq(lp, x, positions, *, cfg, dtype):
@@ -85,22 +104,23 @@ def _attn_seq(lp, x, positions, *, cfg, dtype):
     return attn_lib.attn_out(lp["attn"], ctx, dtype=dtype), (k, v)
 
 
-def _layer(lp, x, positions, *, i, cfg, dtype):
+def _layer(lp, x, positions, *, i, cfg, dtype, constrain):
     """Layer ``i`` over a whole sequence: (x, its decode state: (k, v) or a
     RecurrentState)."""
-    h = norm_apply(cfg, lp["ln1"], x, dtype)
+    h = constrain(norm_apply(cfg, lp["ln1"], x, dtype), ("batch", None, None))
     if cfg.is_attn_layer(i):
         y, kv = _attn_seq(lp, h, positions, cfg=cfg, dtype=dtype)
     else:
         y, kv = ssm.recurrent_block(lp["rec"], h, n_heads=cfg.rnn_heads, dtype=dtype,
                                     with_state=True)
-    x = x + y
-    h = norm_apply(cfg, lp["ln2"], x, dtype)
-    x = x + gated_mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
-    return x, kv
+    x = constrain(residual(x, y, constrain), ("batch", "seq", None))
+    h = constrain(norm_apply(cfg, lp["ln2"], x, dtype), ("batch", None, None))
+    x = residual(x, gated_mlp(lp["mlp"], h, act=cfg.act, dtype=dtype), constrain)
+    return constrain(x, ("batch", "seq", None)), kv
 
 
-def _layers_seq(params, cfg, tokens, layer_state=None):
+def _layers_seq(params, cfg, tokens, layer_state=None, constrain=_noop_constrain,
+                layer_specs=None):
     """The layer stack over a whole sequence: the final hidden states;
     ``layer_state(i, kv or RecurrentState)`` receives each layer's decode
     state where given (prefill, ``collect_kv``). Without it each layer is
@@ -108,29 +128,33 @@ def _layers_seq(params, cfg, tokens, layer_state=None):
     ``collect_kv``."""
     dtype = _dtype(cfg)
     B, T = tokens.shape
-    x = _embed(params, cfg, tokens, dtype)
+    x = constrain(_embed(params, cfg, tokens, dtype), ("batch", "seq", None))
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device)[None].expand(B, T)
     for i, lp in enumerate(params["blocks"]):
         if layer_state is None:
-            x = remat(cfg, lambda lp, x, i=i: _layer(lp, x, positions, i=i, cfg=cfg, dtype=dtype)[0],
-                      lp, x)
+            x = remat(cfg, lambda lp, x, i=i: _layer(lp, x, positions, i=i, cfg=cfg, dtype=dtype,
+                                                     constrain=constrain)[0],
+                      lp, x, constrain=constrain, specs=layer_spec(layer_specs, i))
         else:
-            x, kv = _layer(lp, x, positions, i=i, cfg=cfg, dtype=dtype)
+            x, kv = _layer(lp, x, positions, i=i, cfg=cfg, dtype=dtype, constrain=constrain)
             layer_state(i, kv)
     return x
 
 
-def forward(params, cfg, batch, *, collect_kv=False):
+def forward(params, cfg, batch, *, constrain=_noop_constrain, collect_kv=False, layer_specs=None):
     """batch: {"tokens": (B, T)}. Returns (logits (B, T, V), aux); aux
-    {"kv": {"layer_i": (k, v)}} of the attention layers with collect_kv."""
+    {"kv": {"layer_i": (k, v)}} of the attention layers with collect_kv.
+    ``layer_specs``: `repro_torch.models.lm.forward`'s."""
     kvs = {}
 
     def keep(i, kv):
         if cfg.is_attn_layer(i):
             kvs[f"layer_{i}"] = kv
 
-    x = _layers_seq(params, cfg, batch["tokens"], keep if collect_kv else None)
-    return _logits(params, cfg, x, _dtype(cfg)), ({"kv": kvs} if collect_kv else {})
+    x = _layers_seq(params, cfg, batch["tokens"], keep if collect_kv else None, constrain,
+                    layer_specs)
+    return (_logits(params, cfg, x, _dtype(cfg), constrain),
+            ({"kv": kvs} if collect_kv else {}))
 
 
 def init_decode_state(cfg, batch_size: int, seq_len: int, device: DeviceLike = None):
@@ -160,7 +184,7 @@ def rehome_state(cfg, state, seq_len: int):
     return rehome_into(init_decode_state(cfg, B, seq_len, state["pos"].device), state)
 
 
-def decode_step(params, cfg, state, token, *, use_kernel=False):
+def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_kernel=False):
     """One decode step. token: (B,) int32. Returns (logits (B, V), new
     state); every layer's state is written in place, and the new state
     shares its per-layer dicts. ``use_kernel`` routes
@@ -200,7 +224,7 @@ def decode_step(params, cfg, state, token, *, use_kernel=False):
     return _logits(params, cfg, x, dtype), new_state
 
 
-def prefill(params, cfg, batch):
+def prefill(params, cfg, batch, *, constrain=_noop_constrain):
     """Prefill: the layer stack over the prompt and the decode state: each
     attention layer's trailing window of k/v, rolled so that entry t lands
     at t % S (S = min(T, window)), and each recurrent layer's RG-LRU state
@@ -221,5 +245,5 @@ def prefill(params, cfg, batch):
         else:
             state[f"layer_{i}"] = {"h": kv.h, "conv": kv.conv}
 
-    x = _layers_seq(params, cfg, tokens, keep)
+    x = _layers_seq(params, cfg, tokens, keep, constrain)
     return _logits(params, cfg, x[:, -1:, :], dtype), state

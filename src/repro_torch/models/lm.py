@@ -23,6 +23,14 @@ and casts at each use either way. The rule is shared by every family
 **Remat.** Where the reference wraps a layer in ``jax.checkpoint``
 (``cfg.remat == "full"``), the port runs it through `remat`.
 
+**Sharding.** ``param_specs(cfg)`` is the ShardSpec tree of ``init_lm``'s
+params in the port's layout (``blocks`` a list of per-layer trees, each
+the reference's stacked spec without its leading ``"layers"`` axis).
+``forward``, ``prefill`` and ``decode_step`` take the reference's
+``constrain`` hook (a no-op by default) and call it at the reference's
+points; with params placed on a mesh (DTensors, `runtime.sharding`)
+every op runs on the ranks' shards.
+
 **KV cache.** `decode_step` writes the new token's k/v into the cache
 tensors of ``state`` in place and returns a state that shares them. SWA
 archs (mixtral) decode into a ring buffer of ``min(seq_len, window)``
@@ -40,9 +48,11 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._tree import tree_leaves
 from repro_torch.nn import transformer as tfm
 from repro_torch.nn.attention import KVCache
-from repro_torch.nn.init import dense_init, embed_init, split_keys
+from repro_torch.nn.init import ShardSpec, dense_init, embed_init, split_keys
 from repro_torch.nn.layers import embed as embed_lookup
+from repro_torch.nn.layers import embed_specs
 from repro_torch.nn.moe import dropped_share, load_balancing_loss
+from repro_torch.nn.transformer import _noop_constrain
 
 
 def _dtype(cfg):
@@ -74,18 +84,34 @@ def to_storage(params, cfg, device=None, masters=False, _f32=False):
     return params.detach().to(device=device, dtype=_dtype(cfg) if wide else torch.float32)
 
 
-def remat(cfg, fn, lp, *args):
+def remat(cfg, fn, lp, *args, constrain=_noop_constrain, specs=None):
     """``fn(lp, *args)`` for one layer whose params are ``lp``, its
     activations recomputed in the backward pass (``torch.utils.checkpoint``)
     where the reference wraps the layer in ``jax.checkpoint``: with
     ``cfg.remat == "full"``, while autograd records and ``lp`` requires
     grad. Serving (no grad, or storage params that need none) runs the
     layer as it is. No layer draws random numbers, so no RNG state is
-    kept for the recompute."""
+    kept for the recompute. With ``specs`` (the layer's ShardSpec tree)
+    and a ``constrain`` that has ``.tree``, the layer's params are
+    constrained inside the recomputed body, as the reference's
+    ``layer_specs`` does, so their gradients leave the layer in the
+    params' placements."""
+    if specs is not None and hasattr(constrain, "tree"):
+        body = fn
+
+        def fn(lp, *a):
+            return body(constrain.tree(lp, specs), *a)
+
     if (cfg.remat == "full" and torch.is_grad_enabled()
             and any(t.requires_grad for t in tree_leaves(lp))):
         return checkpoint(fn, lp, *args, use_reentrant=False, preserve_rng_state=False)
     return fn(lp, *args)
+
+
+def layer_spec(layer_specs, i):
+    """Layer ``i``'s ShardSpec tree from ``layer_specs`` (a list with one
+    tree a layer, `Model.layer_specs`'s), or None."""
+    return None if layer_specs is None else layer_specs[i]
 
 
 def tree_from_numpy(tree, device):
@@ -158,6 +184,19 @@ def params_from_numpy(tree, cfg, device: DeviceLike = None, masters=False) -> di
     return to_storage(out, cfg, masters=masters)
 
 
+def param_specs(cfg) -> dict:
+    """The ShardSpec tree of `init_lm`'s params, with the reference's
+    logical axes, in the port's layout."""
+    s = {"embed": embed_specs()}
+    if not cfg.tie_embeddings:
+        s["unembed"] = embed_specs()
+    if cfg.frontend == "vision_stub":
+        s["frontend"] = {"w": ShardSpec((None, "embed"))}
+    s["blocks"] = [tfm.block_specs(cfg) for _ in range(cfg.n_layers)]
+    s["final_norm"] = tfm.norm_specs(cfg)
+    return s
+
+
 # ---------------------------------------------------------------------------
 # embedding / head helpers
 # ---------------------------------------------------------------------------
@@ -169,7 +208,10 @@ def embed_scale(cfg, dtype) -> float:
     return float(torch.tensor(math.sqrt(cfg.d_model), dtype=dtype))
 
 
-def embed_tokens(params, cfg, tokens, patches=None):
+def embed_tokens(params, cfg, tokens, patches=None, constrain=_noop_constrain):
+    """The token embeddings (a vocab-sharded table: a masked local lookup
+    and an all-reduce over ``"model"``, `nn.layers.embed`), gemma's scale,
+    the patches in the leading positions."""
     dtype = _dtype(cfg)
     x = embed_lookup(params["embed"], tokens, dtype=dtype)
     if cfg.zero_centered_norm:  # gemma convention
@@ -178,14 +220,22 @@ def embed_tokens(params, cfg, tokens, patches=None):
         pe = patches.to(dtype) @ params["frontend"]["w"].to(dtype)
         # image patches occupy the leading positions of the sequence
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
-    return x
+    return constrain(x, ("batch", "seq", None))
 
 
-def lm_logits(params, cfg, x):
+def lm_logits(params, cfg, x, constrain=_noop_constrain):
+    """The (tied) unembed, on the hidden states with ``seq`` gathered.
+    Against a vocab-sharded table the logits come out vocab-sharded;
+    `training.losses.next_token_ce` takes them so."""
     dtype = _dtype(cfg)
     x = tfm.norm_apply(cfg, params["final_norm"], x, dtype)
     table = params["embed"]["w"] if cfg.tie_embeddings else params["unembed"]["w"]
-    return x.to(dtype) @ table.to(dtype).T
+    if x.ndim == 3:
+        x = constrain(x, ("batch", None, None))
+    logits = x.to(dtype) @ table.to(dtype).T
+    if x.ndim == 3:
+        logits = constrain(logits, ("batch", None, "vocab"))
+    return logits
 
 
 def _positions(cfg, batch, B, S, device):
@@ -201,7 +251,8 @@ def _positions(cfg, batch, B, S, device):
 # forward (sequence mode)
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg, batch, *, collect_kv=False, logits_mode="all"):
+def forward(params, cfg, batch, *, constrain=_noop_constrain, collect_kv=False,
+            logits_mode="all", layer_specs=None):
     """batch: {"tokens": (B,S) int32, optional "patches" (B,N,frontend_dim),
     "mrope_positions" (3,B,S)}.
 
@@ -211,19 +262,23 @@ def forward(params, cfg, batch, *, collect_kv=False, logits_mode="all"):
     layers (a report; the reference has no such key).
     ``logits_mode="last"`` computes the unembed on the final position only
     (prefill path — avoids materialising (B, S, V)).
+    ``layer_specs``: the per-layer ShardSpec trees (`layer_spec`); with a
+    ``constrain`` that has ``.tree``, each layer's params are constrained
+    inside its remat'd body (`remat`).
     """
     dtype = _dtype(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed_tokens(params, cfg, tokens, batch.get("patches"))
+    x = embed_tokens(params, cfg, tokens, batch.get("patches"), constrain)
     positions = _positions(cfg, batch, B, S, tokens.device)
     windows = tfm.layer_windows(cfg)
     thetas = tfm.layer_thetas(cfg)
     ks, vs, losses, dropped = [], [], [], []
-    for lp, window, theta in zip(params["blocks"], windows, thetas):
+    for i, (lp, window, theta) in enumerate(zip(params["blocks"], windows, thetas)):
         x, aux = remat(cfg, lambda lp, x, window=window, theta=theta: tfm.block_seq(
             lp, x, positions, cfg=cfg, window=window, theta=theta, dtype=dtype,
-            return_kv=collect_kv), lp, x)
+            constrain=constrain, return_kv=collect_kv), lp, x,
+            constrain=constrain, specs=layer_spec(layer_specs, i))
         if collect_kv:
             ks.append(aux["kv"][0])
             vs.append(aux["kv"][1])
@@ -238,8 +293,8 @@ def forward(params, cfg, batch, *, collect_kv=False, logits_mode="all"):
     if collect_kv:
         aux["kv"] = (torch.stack(ks, 0), torch.stack(vs, 0))
     if logits_mode == "last":
-        x = x[:, -1:, :]
-    return lm_logits(params, cfg, x), aux
+        return lm_logits(params, cfg, x[:, -1:, :]), aux
+    return lm_logits(params, cfg, x, constrain), aux
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +306,12 @@ def cache_size(cfg, seq_len: int) -> int:
     if cfg.attn_pattern == "swa" and cfg.local_window > 0:
         return min(seq_len, cfg.local_window)
     return seq_len
+
+
+def state_logical_axes(cfg):
+    """Logical sharding for the decode state (see runtime.sharding)."""
+    kv_axes = ("layers", "batch", "kvseq", None, None)
+    return {"k": ShardSpec(kv_axes), "v": ShardSpec(kv_axes), "pos": ShardSpec(())}
 
 
 def init_decode_state(cfg, batch_size: int, seq_len: int, device: DeviceLike = None):
@@ -298,14 +359,14 @@ def rehome_state(cfg, state, seq_len: int):
     return rehome_into(init_decode_state(cfg, B, seq_len, state["k"].device), state)
 
 
-def decode_step(params, cfg, state, token, *, use_kernel=False):
+def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_kernel=False):
     """One decode step. token: (B,) int32. Returns (logits (B,V), new state).
 
     The caches of ``state`` are written in place and shared with the new
     state; ``pos`` stays a device scalar. ``use_kernel`` routes every
     layer's decode attention through the flash-decode kernel
     (`repro_torch.kernels.ops.decode_attn`) with the layer's window (0 on
-    a ring cache).
+    a ring cache). ``constrain`` reaches the blocks, as in the reference.
     """
     dtype = _dtype(cfg)
     pos = state["pos"]
@@ -317,18 +378,19 @@ def decode_step(params, cfg, state, token, *, use_kernel=False):
     ring = cfg.attn_pattern == "swa" and cfg.local_window > 0
     for i, (lp, window, theta) in enumerate(zip(params["blocks"], windows, thetas)):
         x, _ = tfm.block_step(lp, x, KVCache(state["k"][i], state["v"][i]), pos, cfg=cfg,
-                              window=window, theta=theta, dtype=dtype, ring=ring,
-                              use_kernel=use_kernel)
+                              window=window, theta=theta, dtype=dtype, constrain=constrain,
+                              ring=ring, use_kernel=use_kernel)
     logits = lm_logits(params, cfg, x[:, None, :])[:, 0]
     return logits, {"k": state["k"], "v": state["v"], "pos": pos + 1}
 
 
-def prefill(params, cfg, batch):
+def prefill(params, cfg, batch, *, constrain=_noop_constrain):
     """Full-sequence prefill that also materialises the KV caches.
 
     Returns (last-token logits (B, 1, V), decode state).
     """
-    logits, aux = forward(params, cfg, batch, collect_kv=True, logits_mode="last")
+    logits, aux = forward(params, cfg, batch, constrain=constrain, collect_kv=True,
+                          logits_mode="last")
     k, v = aux["kv"]
     S = batch["tokens"].shape[1]
     state = {"k": k, "v": v, "pos": torch.tensor(S, dtype=torch.int32, device=k.device)}

@@ -7,20 +7,26 @@ holds precomputed frame embeddings (B, enc_seq, d_model).
 layer. The decode state is the reference's: the self-attention caches
 ``k``/``v`` (L, B, S, KV, hd), written in place; the cross-attention
 keys/values ``ck``/``cv`` (L, B, enc_seq, KV, hd), made once by `prefill`
-and held unchanged; and ``pos``.
+and held unchanged; and ``pos``. ``param_specs(cfg)`` and the
+``constrain`` hook are `repro_torch.models.lm`'s; an attention's inputs
+(and the encoder output the cross-attention reads) are constrained to
+``("batch", None, None)``: the whole sequence.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.lm import layer_list, rehome_into, remat, to_storage, tree_from_numpy
+from repro_torch.models.lm import (layer_list, layer_spec, rehome_into, remat, to_storage,
+                                  tree_from_numpy)
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.init import embed_init, split_keys
 from repro_torch.nn.layers import embed as embed_lookup
-from repro_torch.nn.layers import layernorm, layernorm_params, mlp, mlp_params
+from repro_torch.nn.layers import (embed_specs, layernorm, layernorm_params, layernorm_specs, mlp,
+                                   mlp_params, mlp_specs)
 from repro_torch.nn.rope import sinusoid_rows, sinusoid_table
+from repro_torch.nn.transformer import _noop_constrain, residual
 
 
 def _dtype(cfg):
@@ -80,6 +86,20 @@ def init_encdec(generator: torch.Generator, cfg, device: DeviceLike = None, mast
     }
 
 
+def param_specs(cfg) -> dict:
+    """The ShardSpec tree of `init_encdec`'s params (the reference's
+    stacked encoder and decoder specs as lists, without ``"layers"``)."""
+    enc = {"ln1": layernorm_specs(), "attn": attn_lib.attention_specs(),
+           "ln2": layernorm_specs(), "mlp": mlp_specs()}
+    dec = {"ln1": layernorm_specs(), "self_attn": attn_lib.attention_specs(),
+           "ln_x": layernorm_specs(), "cross_attn": attn_lib.attention_specs(),
+           "ln2": layernorm_specs(), "mlp": mlp_specs()}
+    return {"embed": embed_specs(),
+            "encoder": [enc for _ in range(cfg.n_enc_layers)],
+            "decoder": [dec for _ in range(cfg.n_layers)],
+            "enc_ln": layernorm_specs(), "dec_ln": layernorm_specs()}
+
+
 def params_from_numpy(tree, cfg, device: DeviceLike = None, masters=False) -> dict:
     """The reference's ``init_encdec`` params (stacked encoder and decoder
     layers) as the port's, on ``device``, in their storage dtypes (f32
@@ -114,70 +134,82 @@ def _cross_attn(lp, x, ck, cv, *, cfg, dtype):
     return attn_lib.attn_out(lp, ctx, dtype=dtype)
 
 
-def _logits(params, cfg, x, dtype):
+def _logits(params, cfg, x, dtype, constrain=_noop_constrain):
     x = layernorm(params["dec_ln"], x, dtype=dtype)
-    return _mask_pad_vocab(cfg, x @ params["embed"]["w"].to(dtype).T)
+    logits = _mask_pad_vocab(cfg, x @ params["embed"]["w"].to(dtype).T)
+    return constrain(logits, ("batch", None, "vocab"))
 
 
-def encode(params, cfg, frames):
+def encode(params, cfg, frames, *, constrain=_noop_constrain, layer_specs=None):
     """frames: (B, enc_seq, d_model) stub embeddings -> encoder output.
     Each layer is a `remat` unit, as the reference checkpoints it."""
     dtype = _dtype(cfg)
     S = frames.shape[1]
     x = frames.to(dtype) + sinusoid_table(S, cfg.d_model, frames.device).to(dtype)[None]
+    x = constrain(x, ("batch", "seq", None))
 
     def layer(lp, x):
-        h = layernorm(lp["ln1"], x, dtype=dtype)
+        h = constrain(layernorm(lp["ln1"], x, dtype=dtype), ("batch", None, None))
         y, _ = _self_attn(lp["attn"], h, None, cfg=cfg, dtype=dtype)
-        x = x + y
-        h = layernorm(lp["ln2"], x, dtype=dtype)
-        return x + mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
+        x = residual(x, y, constrain)
+        h = constrain(layernorm(lp["ln2"], x, dtype=dtype), ("batch", None, None))
+        x = residual(x, mlp(lp["mlp"], h, act=cfg.act, dtype=dtype), constrain)
+        return constrain(x, ("batch", "seq", None))
 
-    for lp in params["encoder"]:
-        x = remat(cfg, layer, lp, x)
+    for i, lp in enumerate(params["encoder"]):
+        x = remat(cfg, layer, lp, x, constrain=constrain, specs=layer_spec(layer_specs, i))
     return layernorm(params["enc_ln"], x, dtype=dtype)
 
 
-def forward(params, cfg, batch, *, collect_kv=False, logits_mode="all"):
+def forward(params, cfg, batch, *, constrain=_noop_constrain, collect_kv=False, logits_mode="all",
+            layer_specs=None):
     """Teacher-forced decode over the full target sequence. batch:
     {"tokens": (B, T), "frames": (B, enc_seq, d_model)}. Returns (logits,
     aux); aux {"kv": (L,B,T,KV,hd) x2, "cross": (L,B,enc_seq,KV,hd) x2}
     with collect_kv. Each decoder layer is a `remat` unit but with
-    collect_kv, as in the reference."""
+    collect_kv, as in the reference. ``layer_specs``: {"encoder",
+    "decoder"}, each `repro_torch.models.lm.forward`'s."""
     dtype = _dtype(cfg)
     tokens = batch["tokens"]
     T = tokens.shape[1]
-    enc_out = encode(params, cfg, batch["frames"])
+    specs = layer_specs or {}
+    enc_out = encode(params, cfg, batch["frames"], constrain=constrain,
+                     layer_specs=specs.get("encoder"))
+    enc_out = constrain(enc_out, ("batch", None, None))
     x = embed_lookup(params["embed"], tokens, dtype=dtype)
     x = x + sinusoid_table(T, cfg.d_model, tokens.device).to(dtype)[None]
+    x = constrain(x, ("batch", "seq", None))
     t_ar = torch.arange(T, dtype=torch.int32, device=tokens.device)
     mask = attn_lib.make_mask(t_ar, t_ar, None)
 
     def layer(lp, x, enc_out):
-        h = layernorm(lp["ln1"], x, dtype=dtype)
+        h = constrain(layernorm(lp["ln1"], x, dtype=dtype), ("batch", None, None))
         y, (k, v) = _self_attn(lp["self_attn"], h, mask, cfg=cfg, dtype=dtype)
-        x = x + y
-        h = layernorm(lp["ln_x"], x, dtype=dtype)
+        x = residual(x, y, constrain)
+        h = constrain(layernorm(lp["ln_x"], x, dtype=dtype), ("batch", None, None))
         ck, cv = _cross_kv(lp["cross_attn"], enc_out, cfg=cfg, dtype=dtype)
-        x = x + _cross_attn(lp["cross_attn"], h, ck, cv, cfg=cfg, dtype=dtype)
-        h = layernorm(lp["ln2"], x, dtype=dtype)
-        return x + mlp(lp["mlp"], h, act=cfg.act, dtype=dtype), (k, v, ck, cv)
+        x = residual(x, _cross_attn(lp["cross_attn"], h, ck, cv, cfg=cfg, dtype=dtype), constrain)
+        h = constrain(layernorm(lp["ln2"], x, dtype=dtype), ("batch", None, None))
+        x = residual(x, mlp(lp["mlp"], h, act=cfg.act, dtype=dtype), constrain)
+        x = constrain(x, ("batch", "seq", None))
+        return x, (k, v, ck, cv)
 
     ks, vs, cks, cvs = [], [], [], []
-    for lp in params["decoder"]:
+    for i, lp in enumerate(params["decoder"]):
         if collect_kv:
             x, kvs = layer(lp, x, enc_out)
             for acc, t in zip((ks, vs, cks, cvs), kvs):
                 acc.append(t)
         else:
-            x = remat(cfg, lambda lp, x, enc_out: layer(lp, x, enc_out)[0], lp, x, enc_out)
-    if logits_mode == "last":
-        x = x[:, -1:, :]
+            x = remat(cfg, lambda lp, x, enc_out: layer(lp, x, enc_out)[0], lp, x, enc_out,
+                      constrain=constrain, specs=layer_spec(specs.get("decoder"), i))
     aux = {}
     if collect_kv:
         aux["kv"] = (torch.stack(ks), torch.stack(vs))
         aux["cross"] = (torch.stack(cks), torch.stack(cvs))
-    return _logits(params, cfg, x, dtype), aux
+    if logits_mode == "last":
+        return _logits(params, cfg, x[:, -1:, :], dtype), aux
+    return _logits(params, cfg, x, dtype, constrain), aux
 
 
 def init_decode_state(cfg, batch_size: int, seq_len: int, device: DeviceLike = None):
@@ -202,7 +234,7 @@ def rehome_state(cfg, state, seq_len: int):
     return rehome_into(init_decode_state(cfg, B, seq_len, state["k"].device), state)
 
 
-def decode_step(params, cfg, state, token, *, use_kernel=False):
+def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_kernel=False):
     """One decode step. token: (B,) int32. Returns (logits (B, V), new
     state). The self-attention caches are written in place; ``ck``/``cv``
     pass through unchanged. ``use_kernel`` routes the self-attention
@@ -239,10 +271,11 @@ def decode_step(params, cfg, state, token, *, use_kernel=False):
                     "pos": pos + 1}
 
 
-def prefill(params, cfg, batch):
+def prefill(params, cfg, batch, *, constrain=_noop_constrain):
     """Encoder, then the decoder over the prompt with its caches. Returns
     (last-token logits (B, 1, V), decode state)."""
-    logits, aux = forward(params, cfg, batch, collect_kv=True, logits_mode="last")
+    logits, aux = forward(params, cfg, batch, constrain=constrain, collect_kv=True,
+                          logits_mode="last")
     k, v = aux["kv"]
     ck, cv = aux["cross"]
     T = batch["tokens"].shape[1]

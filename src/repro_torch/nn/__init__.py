@@ -3,12 +3,12 @@
 
 * Parameters are nested dicts of tensors with the reference's names and
   layouts (a dense kernel is (in, out), used as ``x @ w``).
-* Every ``init_*`` draws from an explicit ``torch.Generator`` and returns
-  the params alone (``ShardSpec`` is in ``nn.init``; the families'
-  ``ShardSpec`` trees come with the LM half of the mesh).
+* Every ``*_params`` initialiser draws from an explicit
+  ``torch.Generator`` and returns the params alone; the ``*_specs``
+  function beside it gives their ``ShardSpec`` tree (``nn.init``).
 * Compute dtype is taken from the config (bf16 by default).
-* Ported so far: init, layers, rope, attention and the dense transformer
-  block; moe and ssm come with their families.
+* Modules: init, layers, rope, attention, the transformer block, moe and
+  ssm.
 """
 from repro_torch.nn.init import dense_init, embed_init, scalar_init
 from repro_torch.nn import layers, rope, attention, transformer

@@ -12,16 +12,24 @@ GQA is computed by reshaping q heads into (n_kv, group).
 The KV cache is written in place (`cache_update`): a decode step reuses
 the cache tensors it was given instead of copying a whole layer's cache
 for every token, as JAX's immutable arrays would.
+
+On a mesh (DTensor q, k, v) `mha` is head-parallel by hand
+(`_mha_on_mesh`): DTensor's einsum rule fails on the grouped heads with
+their kv dim split (torch 2.11: "Attempted to flatten multiple
+dimensions, with dimension 1 being sharded"), where GSPMD partitions the
+same einsum.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from repro_torch.nn.init import dense_init, split_keys
-from repro_torch.nn.layers import rmsnorm, rmsnorm_params
+from repro_torch.nn.init import ShardSpec, dense_init, split_keys
+from repro_torch.nn.layers import rmsnorm, rmsnorm_params, rmsnorm_specs
 
 NEG_INF = -2.3819763e38  # large negative for masked logits (bf16-safe)
 
@@ -45,12 +53,33 @@ def attention_params(generator, d_model, n_heads, n_kv, head_dim, *, qk_norm=Fal
     return p
 
 
+def attention_specs(*, qk_norm=False):
+    s = {"wq": ShardSpec(("embed", "heads")), "wk": ShardSpec(("embed", "heads")),
+         "wv": ShardSpec(("embed", "heads")), "wo": ShardSpec(("heads", "embed"))}
+    if qk_norm:
+        s["q_norm"] = rmsnorm_specs(None)
+        s["k_norm"] = rmsnorm_specs(None)
+    return s
+
+
+def _split_heads(t, n, head_dim):
+    """(B, T, n * head_dim) -> (B, T, n, head_dim). A DTensor whose last
+    dim is split over more ranks than ``n`` divides among them (GQA with
+    fewer kv heads than ``model`` ranks: the split cuts a head) is first
+    gathered on those mesh dims."""
+    if isinstance(t, DTensor):
+        cut = [m for m, p in enumerate(t.placements) if p.is_shard(2)]
+        if n % math.prod(t.device_mesh.size(m) for m in cut):
+            t = t.redistribute(t.device_mesh, [Replicate() if m in cut else p
+                                               for m, p in enumerate(t.placements)])
+    return t.reshape(*t.shape[:2], n, head_dim)
+
+
 def project_qkv(params, x, *, n_heads, n_kv, head_dim, dtype=torch.bfloat16, qk_norm=False):
-    B, T, _ = x.shape
     x = x.to(dtype)
-    q = (x @ params["wq"].to(dtype)).reshape(B, T, n_heads, head_dim)
-    k = (x @ params["wk"].to(dtype)).reshape(B, T, n_kv, head_dim)
-    v = (x @ params["wv"].to(dtype)).reshape(B, T, n_kv, head_dim)
+    q = _split_heads(x @ params["wq"].to(dtype), n_heads, head_dim)
+    k = _split_heads(x @ params["wk"].to(dtype), n_kv, head_dim)
+    v = _split_heads(x @ params["wv"].to(dtype), n_kv, head_dim)
     if qk_norm:
         q = rmsnorm(params["q_norm"], q, dtype=dtype)
         k = rmsnorm(params["k_norm"], k, dtype=dtype)
@@ -71,6 +100,8 @@ def mha(q, k, v, mask=None, *, dtype=torch.bfloat16, logit_cap: float = 0.0):
 
     q: (B, Tq, H, hd); k,v: (B, Tk, KV, hd); mask: broadcastable (Tq, Tk) bool.
     """
+    if isinstance(q, DTensor):
+        return _mha_on_mesh(q, k, v, mask, dtype=dtype, logit_cap=logit_cap)
     B, Tq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -84,6 +115,56 @@ def mha(q, k, v, mask=None, *, dtype=torch.bfloat16, logit_cap: float = 0.0):
     probs = torch.softmax(logits, dim=-1).to(dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.to(dtype))
     return out.reshape(B, Tq, H, hd)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves contiguous: a rank's local
+    tensor hands its gradient back to a DTensor, whose later views
+    (rope's, the head split's) need a contiguous local tensor."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _mha_on_mesh(q, k, v, mask, *, dtype, logit_cap):
+    """`mha` of DTensors, each rank attending with its heads: q keeps the
+    mesh dims that split its batch (dim 0) and its heads (dim 2), k and v
+    the same batch dims and, where the kv heads divide among the ranks,
+    the same head dims; otherwise k and v are whole on those dims and each
+    rank takes the kv heads of its q heads (their gradient is then a
+    partial sum, all-reduced by the backward). The plain `mha` runs on the
+    local tensors; the result is q's placements. Sequence dims are
+    gathered."""
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    pq = [p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in q.placements]
+    heads = [m for m, p in enumerate(pq) if p.is_shard(2)]
+    ways = math.prod(mesh.size(m) for m in heads)
+    if H % ways:
+        heads, ways = [], 1
+        pq = [p if p.is_shard(0) else Replicate() for p in pq]
+    q_l = q.redistribute(mesh, pq).to_local()
+    if KV % ways == 0:
+        pkv = pq
+        k_l, v_l = (t.redistribute(mesh, pkv).to_local() for t in (k, v))
+    else:  # whole kv heads on the head dims: take the ones this rank's q heads use
+        pkv = [Replicate() if m in heads else p for m, p in enumerate(pq)]
+        grad = [Partial() if m in heads else p for m, p in enumerate(pq)]
+        from repro_torch.runtime.sharding import shard_offsets
+
+        h0 = shard_offsets(q.redistribute(mesh, pq), 2)[0]
+        G = H // KV
+        lo, hi = h0 // G, (h0 + q_l.shape[2] - 1) // G + 1
+        k_l, v_l = (t.redistribute(mesh, pkv).to_local(grad_placements=grad)[:, :, lo:hi]
+                    for t in (k, v))
+    q_l, k_l, v_l = (_ContiguousGrad.apply(t) for t in (q_l, k_l, v_l))
+    ctx = mha(q_l, k_l, v_l, mask, dtype=dtype, logit_cap=logit_cap)
+    return DTensor.from_local(ctx.contiguous(), mesh, pq, run_check=False)
 
 
 def attn_out(params, ctx, *, dtype=torch.bfloat16):

@@ -1,12 +1,14 @@
 """Parameter initialisation helpers — the port of ``repro.nn.init``.
 
 Every initialiser draws from an explicit ``torch.Generator`` and returns
-the tensor alone. ``ShardSpec`` (logical sharding axes, which
-``repro_torch.runtime.sharding`` maps onto a mesh) is here; the families'
-``init`` do not return ``ShardSpec`` trees yet (ROADMAP.md Queue 1, item
-12a-LM). Tensors are made on the generator's device, so a CUDA generator
-initialises a full-width model on the card without a trip through host
-memory.
+the tensor alone, where the reference's returns ``(array, ShardSpec)``.
+The ``ShardSpec`` half (the logical sharding axes, which
+``repro_torch.runtime.sharding`` maps onto a mesh) comes from a function
+beside each ``*_params`` initialiser (``*_specs``, with the reference's
+axes), and every family's ``param_specs(cfg)`` assembles the
+tree of a whole model. Tensors are made on the generator's device, so a
+CUDA generator initialises a full-width model on the card without a trip
+through host memory.
 """
 from __future__ import annotations
 

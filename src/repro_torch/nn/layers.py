@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.nn.init import dense_init, scalar_init, split_keys
+from repro_torch.nn.init import ShardSpec, dense_init, scalar_init, split_keys
 
 
 # ---------------------------------------------------------------------------
@@ -33,12 +34,23 @@ def dense_params(generator, in_dim, out_dim, *, bias=False, scale=1.0):
     return p
 
 
+def dense_specs(axes, *, bias=False):
+    s = {"w": ShardSpec(tuple(axes))}
+    if bias:
+        s["b"] = ShardSpec((axes[-1],))
+    return s
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
 def rmsnorm_params(dim, *, device=None):
     return {"g": scalar_init(1.0, (dim,), device=device)}
+
+
+def rmsnorm_specs(axis="embed"):
+    return {"g": ShardSpec((axis,))}
 
 
 def rmsnorm(params, x, *, eps=1e-6, dtype=torch.bfloat16, zero_centered=False):
@@ -62,6 +74,10 @@ def layernorm_params(dim, *, device=None):
             "b": scalar_init(0.0, (dim,), device=device)}
 
 
+def layernorm_specs():
+    return {"g": ShardSpec(("embed",)), "b": ShardSpec(("embed",))}
+
+
 def layernorm(params, x, *, eps=1e-5, dtype=torch.bfloat16):
     xf = x.to(torch.float32)
     mu = torch.mean(xf, dim=-1, keepdim=True)
@@ -75,9 +91,20 @@ def layernorm(params, x, *, eps=1e-5, dtype=torch.bfloat16):
 # embedding
 # ---------------------------------------------------------------------------
 
+def embed_specs():
+    return {"w": ShardSpec(("vocab", "embed"))}
+
+
 def embed(params, tokens, *, dtype=torch.bfloat16):
-    """Token embedding lookup. params: {"w": (V, D)}."""
-    return params["w"].to(dtype)[tokens]
+    """Token embedding lookup. params: {"w": (V, D)}. A table placed on a
+    mesh (a DTensor, its rows split over ``"model"`` by ``vocab``) is
+    looked up by `repro_torch.runtime.sharding.vocab_parallel_rows`."""
+    w = params["w"]
+    if isinstance(w, DTensor):
+        from repro_torch.runtime.sharding import vocab_parallel_rows
+
+        return vocab_parallel_rows(w.to(dtype), tokens)
+    return w.to(dtype)[tokens]
 
 
 def unembed(params, x, *, dtype=torch.bfloat16):
@@ -113,6 +140,11 @@ def gated_mlp_params(generator, d_model, d_ff):
     }
 
 
+def gated_mlp_specs(axes_up=("embed", "mlp"), axes_down=("mlp", "embed")):
+    return {"wi_gate": ShardSpec(axes_up), "wi_up": ShardSpec(axes_up),
+            "wo": ShardSpec(axes_down)}
+
+
 def gated_mlp(params, x, *, act="silu", dtype=torch.bfloat16):
     """SwiGLU-family MLP: wo( act(x@wi_gate) * (x@wi_up) )."""
     x = x.to(dtype)
@@ -128,6 +160,10 @@ def mlp_params(generator, d_in, d_hidden, d_out, *, bias=True):
             "wo": dense_params(k2, d_hidden, d_out, bias=bias)}
 
 
+def mlp_specs(axes_up=("embed", "mlp"), axes_down=("mlp", "embed"), *, bias=True):
+    return {"wi": dense_specs(axes_up, bias=bias), "wo": dense_specs(axes_down, bias=bias)}
+
+
 def mlp(params, x, *, act="gelu", dtype=torch.bfloat16):
     h = _act(act)(dense(params["wi"], x, dtype=dtype))
     return dense(params["wo"], h, dtype=dtype)
@@ -140,6 +176,10 @@ def mlp(params, x, *, act="gelu", dtype=torch.bfloat16):
 def causal_conv1d_params(generator, width, dim):
     return {"w": dense_init(generator, width, dim),
             "b": scalar_init(0.0, (dim,), device=generator.device)}
+
+
+def causal_conv1d_specs():
+    return {"w": ShardSpec((None, "embed")), "b": ShardSpec(("embed",))}
 
 
 def causal_conv1d(params, x, *, dtype=torch.bfloat16):

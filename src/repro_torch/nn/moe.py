@@ -15,7 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.nn.init import dense_init, split_keys
+from repro_torch.nn.init import ShardSpec, dense_init, split_keys
 
 
 def moe_params(generator, d_model, d_ff, n_experts):
@@ -31,6 +31,17 @@ def moe_params(generator, d_model, d_ff, n_experts):
         "wi_gate": expert_w(kg, d_model, d_ff),  # (E, D, F)
         "wi_up": expert_w(ku, d_model, d_ff),  # (E, D, F)
         "wo": expert_w(ko, d_ff, d_model),  # (E, F, D)
+    }
+
+
+def moe_specs():
+    """The expert stacks lead with ``expert``: ``expert → model`` with
+    ``cfg.moe_ep``, else ``mlp → model`` (`runtime.sharding.rules_for`)."""
+    return {
+        "router": ShardSpec(("embed", None)),
+        "wi_gate": ShardSpec(("expert", "embed", "mlp")),
+        "wi_up": ShardSpec(("expert", "embed", "mlp")),
+        "wo": ShardSpec(("expert", "mlp", "embed")),
     }
 
 
@@ -62,9 +73,11 @@ def _expert_positions(gate_idx, n_experts: int):
 
 
 def moe_apply(params, x, *, n_experts: int, top_k: int, capacity_factor: float = 1.25,
-              group_size: int = 1024, act=F.silu, dtype=torch.bfloat16):
+              group_size: int = 1024, act=F.silu, dtype=torch.bfloat16, constrain=None):
     """x: (B, T, D) -> ((B, T, D), router logits (G, g, E) f32). Router in
-    f32, experts in the compute dtype."""
+    f32, experts in the compute dtype. ``constrain`` (the reference's
+    sharding hook) places the token groups on ``batch`` and the expert
+    buffers on ``("batch", "expert")``."""
     B, T, D = x.shape
     n_tokens = B * T
     g = min(group_size, n_tokens)
@@ -72,6 +85,8 @@ def moe_apply(params, x, *, n_experts: int, top_k: int, capacity_factor: float =
     if G * g != n_tokens:
         raise ValueError(f"group_size {g} must divide tokens {n_tokens}")
     xt = x.reshape(G, g, D)
+    if constrain is not None:
+        xt = constrain(xt, ("batch", None, None))
 
     # --- routing (fp32) ---
     router_logits = torch.einsum("Ggd,de->Gge", xt.to(torch.float32),
@@ -93,10 +108,14 @@ def moe_apply(params, x, *, n_experts: int, top_k: int, capacity_factor: float =
 
     # --- expert compute ---
     expert_in = torch.einsum("GgEC,Ggd->GECd", dispatch, xt.to(dtype))
+    if constrain is not None:
+        expert_in = constrain(expert_in, ("batch", "expert", None, None))
     hg = torch.einsum("GECd,Edf->GECf", expert_in, params["wi_gate"].to(dtype))
     hu = torch.einsum("GECd,Edf->GECf", expert_in, params["wi_up"].to(dtype))
     h = act(hg) * hu
     expert_out = torch.einsum("GECf,Efd->GECd", h, params["wo"].to(dtype))
+    if constrain is not None:
+        expert_out = constrain(expert_out, ("batch", "expert", None, None))
 
     out = torch.einsum("GgEC,GECd->Ggd", combine, expert_out)
     return out.reshape(B, T, D), router_logits

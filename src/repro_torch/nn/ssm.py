@@ -17,8 +17,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.nn.init import dense_init, scalar_init, split_keys
-from repro_torch.nn.layers import causal_conv1d, causal_conv1d_params, causal_conv1d_step
+from repro_torch.nn.init import ShardSpec, dense_init, scalar_init, split_keys
+from repro_torch.nn.layers import (causal_conv1d, causal_conv1d_params, causal_conv1d_specs,
+                                   causal_conv1d_step)
 
 # ---------------------------------------------------------------------------
 # RG-LRU
@@ -45,6 +46,16 @@ def rglru_params(generator, d_rnn, n_heads):
         "b_input_gate": scalar_init(0.0, (d_rnn,), device=dev),
         "b_rec_gate": scalar_init(0.0, (d_rnn,), device=dev),
         "lam": scalar_init(lam0, (d_rnn,), device=dev),
+    }
+
+
+def rglru_specs():
+    return {
+        "w_input_gate": ShardSpec((None, None, "embed")),
+        "w_rec_gate": ShardSpec((None, None, "embed")),
+        "b_input_gate": ShardSpec(("embed",)),
+        "b_rec_gate": ShardSpec(("embed",)),
+        "lam": ShardSpec(("embed",)),
     }
 
 
@@ -108,6 +119,16 @@ def recurrent_block_params(generator, d_model, d_rnn, n_heads, conv_width=4):
         "conv": causal_conv1d_params(kc, conv_width, d_rnn),
         "rglru": rglru_params(kr, d_rnn, n_heads),
         "wo": dense_init(ko, d_rnn, d_model),
+    }
+
+
+def recurrent_block_specs():
+    return {
+        "wx": ShardSpec(("embed", "mlp")),
+        "wy": ShardSpec(("embed", "mlp")),
+        "conv": causal_conv1d_specs(),
+        "rglru": rglru_specs(),
+        "wo": ShardSpec(("mlp", "embed")),
     }
 
 
@@ -189,6 +210,17 @@ def rwkv_timemix_params(generator, d_model, n_heads):
     p["ln_g"] = scalar_init(1.0, (d_model,), device=dev)
     p["ln_b"] = scalar_init(0.0, (d_model,), device=dev)
     return p
+
+
+def rwkv_timemix_specs():
+    s = {name: ShardSpec(("embed", "heads")) for name in ["wr", "wk", "wv", "wg"]}
+    s["wo"] = ShardSpec(("heads", "embed"))
+    for name in ["mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "w0"]:
+        s[name] = ShardSpec(("embed",))
+    s["decay_lora"] = {"a": ShardSpec(("embed", None)), "b": ShardSpec((None, "embed"))}
+    for name in ["u", "ln_g", "ln_b"]:
+        s[name] = ShardSpec(("embed",))
+    return s
 
 
 def _headify(x, n_heads):
@@ -274,6 +306,16 @@ def rwkv_channelmix_params(generator, d_model, d_ff):
         "wr": dense_init(kr, d_model, d_model),
         "mu_k": scalar_init(0.5, (d_model,), device=dev),
         "mu_r": scalar_init(0.5, (d_model,), device=dev),
+    }
+
+
+def rwkv_channelmix_specs():
+    return {
+        "wk": ShardSpec(("embed", "mlp")),
+        "wv": ShardSpec(("mlp", "embed")),
+        "wr": ShardSpec(("embed", "embed2")),
+        "mu_k": ShardSpec(("embed",)),
+        "mu_r": ShardSpec(("embed",)),
     }
 
 

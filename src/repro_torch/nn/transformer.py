@@ -5,6 +5,18 @@ The reference feeds each layer's window and rope theta to one scanned
 body as traced scalars; the port loops over layers in Python, so both are
 plain Python numbers (`layer_windows`, `layer_thetas`) and the decode
 kernel sees each layer's window as the static int it is.
+
+``constrain(x, logical_axes)`` is the reference's sharding hook: a no-op
+by default, `repro_torch.runtime.sharding.make_constrain`'s redistribute
+on a mesh. It is called where the reference calls it, and once more
+where a mixer needs the whole sequence: the attention's input is
+constrained to ``("batch", None, None)`` (``seq`` gathered), where GSPMD
+inserts that all-gather by itself; so is the MLP's, whose matmuls would
+otherwise flatten (batch, seq) with ``seq`` split, which DTensor refuses
+(torch 2.11). A mixer's or MLP's output (partial sums over ``model``) is
+constrained to ``("batch", "seq", None)`` before it joins the residual
+(`residual`): a reduce-scatter forward, an all-gather of its gradient
+backward, so no backward matmul meets a ``seq``-split gradient either.
 """
 from __future__ import annotations
 
@@ -17,7 +29,19 @@ from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import rope as rope_lib
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.init import split_keys
-from repro_torch.nn.layers import gated_mlp, gated_mlp_params, layernorm, layernorm_params, rmsnorm, rmsnorm_params
+from repro_torch.nn.layers import (gated_mlp, gated_mlp_params, gated_mlp_specs, layernorm,
+                                   layernorm_params, layernorm_specs, rmsnorm, rmsnorm_params,
+                                   rmsnorm_specs)
+
+
+def _noop_constrain(x, axes):
+    return x
+
+
+def residual(x, y, constrain):
+    """``x + y`` with ``y`` first placed as the residual stream is."""
+    return x + constrain(y, ("batch", "seq", None))
+
 
 
 # ---------------------------------------------------------------------------
@@ -28,6 +52,10 @@ def norm_params(cfg, dim, device=None):
     if cfg.norm == "layernorm":
         return layernorm_params(dim, device=device)
     return rmsnorm_params(dim, device=device)
+
+
+def norm_specs(cfg):
+    return layernorm_specs() if cfg.norm == "layernorm" else rmsnorm_specs()
 
 
 def norm_apply(cfg, params, x, dtype):
@@ -59,6 +87,20 @@ def block_params(generator, cfg):
     return p
 
 
+def block_specs(cfg):
+    """The ShardSpec tree of one `block_params` layer."""
+    s = {"ln1": norm_specs(cfg),
+         "attn": attn_lib.attention_specs(qk_norm=cfg.qk_norm)}
+    if cfg.post_attn_norm:
+        s["ln1_post"] = norm_specs(cfg)
+    s["ln2"] = norm_specs(cfg)
+    if cfg.family == "moe":
+        s["moe"] = moe_lib.moe_specs()
+    else:
+        s["mlp"] = gated_mlp_specs()
+    return s
+
+
 # ---------------------------------------------------------------------------
 # sequence mode (prefill)
 # ---------------------------------------------------------------------------
@@ -73,18 +115,19 @@ def _apply_rope_qk(cfg, q, k, positions, theta):
     return q, k
 
 
-def _ffn(cfg, params, h, dtype, group_size):
+def _ffn(cfg, params, h, dtype, group_size, constrain):
     """The MLP or MoE half of a block: (output, router logits or None)."""
     if cfg.family == "moe":
         return moe_lib.moe_apply(
             params["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor, group_size=group_size, dtype=dtype,
+            constrain=constrain,
         )
     return gated_mlp(params["mlp"], h, act=cfg.act, dtype=dtype), None
 
 
 def block_seq(params, x, positions, *, cfg, window: int, theta: float, dtype,
-              return_kv: bool = False):
+              constrain=_noop_constrain, return_kv: bool = False):
     """Full-sequence block. x: (B, T, D); positions: (B, T) or (3, B, T)
     for M-RoPE.
 
@@ -93,7 +136,7 @@ def block_seq(params, x, positions, *, cfg, window: int, theta: float, dtype,
     """
     aux = {}
     T = x.shape[1]
-    h = norm_apply(cfg, params["ln1"], x, dtype)
+    h = constrain(norm_apply(cfg, params["ln1"], x, dtype), ("batch", None, None))
     q, k, v = attn_lib.project_qkv(
         params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim, dtype=dtype, qk_norm=cfg.qk_norm,
@@ -104,16 +147,17 @@ def block_seq(params, x, positions, *, cfg, window: int, theta: float, dtype,
     t_ar = torch.arange(T, dtype=torch.int32, device=x.device)
     mask = attn_lib.make_mask(t_ar, t_ar, window)
     ctx = attn_lib.mha(q, k, v, mask, dtype=dtype, logit_cap=cfg.logit_cap)
-    a = attn_lib.attn_out(params["attn"], ctx, dtype=dtype)
+    a = constrain(attn_lib.attn_out(params["attn"], ctx, dtype=dtype), ("batch", "seq", None))
     if cfg.post_attn_norm:
         a = norm_apply(cfg, params["ln1_post"], a, dtype)
     x = x + a
+    x = constrain(x, ("batch", "seq", None))
 
-    h = norm_apply(cfg, params["ln2"], x, dtype)
-    m, router_logits = _ffn(cfg, params, h, dtype, cfg.moe_group_size)
+    h = constrain(norm_apply(cfg, params["ln2"], x, dtype), ("batch", None, None))
+    m, router_logits = _ffn(cfg, params, h, dtype, cfg.moe_group_size, constrain)
     if router_logits is not None:
         aux["router_logits"] = router_logits
-    return x + m, aux
+    return constrain(residual(x, m, constrain), ("batch", "seq", None)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +165,7 @@ def block_seq(params, x, positions, *, cfg, window: int, theta: float, dtype,
 # ---------------------------------------------------------------------------
 
 def block_step(params, x_t, cache: KVCache, pos, *, cfg, window: int, theta: float, dtype,
-               ring: bool = False, use_kernel: bool = False):
+               constrain=_noop_constrain, ring: bool = False, use_kernel: bool = False):
     """Single-token decode. x_t: (B, D); pos: scalar int32 tensor, the
     absolute position (stays on the device: the step reads nothing back).
 
@@ -152,7 +196,7 @@ def block_step(params, x_t, cache: KVCache, pos, *, cfg, window: int, theta: flo
     x_t = x_t + a
 
     h = norm_apply(cfg, params["ln2"], x_t[:, None, :], dtype)
-    m, _ = _ffn(cfg, params, h, dtype, min(cfg.moe_group_size, B))
+    m, _ = _ffn(cfg, params, h, dtype, min(cfg.moe_group_size, B), constrain)
     x_t = x_t + m[:, 0]
     return x_t, cache
 

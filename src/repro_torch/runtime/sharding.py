@@ -20,15 +20,26 @@ major to minor) or None. `to_placements` turns one into the DTensor
 placements of a mesh, one ``Shard``/``Replicate`` per mesh dim. A
 sharding is the pair ``(mesh, placements)``, the counterpart of the
 reference's ``NamedSharding``.
+
+On a mesh the LM families run SPMD on DTensors: `shard_tree` places the
+params (each rank keeps its shard), ``constrain`` redistributes the
+activations at the reference's hooks, and DTensor's own rules place
+everything between them. Where DTensor has no rule that works, the
+collective is written by hand: `vocab_parallel_rows` here (the embedding
+lookup in a vocab-sharded table), the vocab-sharded cross-entropy in
+`repro_torch.training.losses`, head-parallel attention in
+`repro_torch.nn.attention`.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Sequence, Tuple
 
+import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
 
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.nn.init import ShardSpec
 
 
@@ -133,30 +144,131 @@ def spec_tree_to_shardings(spec_tree, rules, mesh: DeviceMesh):
     return tree_map(convert, spec_tree)
 
 
+def place(x, mesh: DeviceMesh, placements) -> DTensor:
+    """``x`` as a DTensor with ``placements``: a DTensor is redistributed;
+    a plain tensor, which must hold the same value on every rank, keeps
+    its shard of itself (no communication, and autograd flows through).
+    A tensor dim that its mesh dims do not split evenly stays whole
+    (``Replicate()`` on them), as does any dim on a mesh dim of one rank:
+    DTensor refuses to reshape a dim split unevenly, or "split" over one
+    rank (the MoE's single token group, G = 1), where GSPMD pads."""
+    placements = tuple(placements)
+    ways = {}
+    for m, p in enumerate(placements):
+        if p.is_shard():
+            ways[p.dim] = ways.get(p.dim, 1) * mesh.size(m)
+    placements = tuple(
+        Replicate() if p.is_shard() and (mesh.size(m) == 1 or x.shape[p.dim] % ways[p.dim]) else p
+        for m, p in enumerate(placements))
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return x.redistribute(mesh, placements)
+
+
 def make_constrain(mesh: DeviceMesh, rules: dict) -> Callable:
     """Returns constrain(x, logical_axes) for activation sharding hints:
     a DTensor is redistributed to the placements, a plain tensor (the
-    same value on every rank) is distributed to them.
+    same value on every rank) is placed on them (`place`).
 
     The returned callable also exposes ``constrain.tree(tree, spec_tree)``
     for a tree of tensors beside its ShardSpec tree.
     """
     mesh_axes = mesh.mesh_dim_names
 
-    def place(x, logical_axes):
-        placements = to_placements(to_pspec(tuple(logical_axes), rules, mesh_axes), mesh)
-        if isinstance(x, DTensor):
-            return x.redistribute(mesh, placements)
-        return distribute_tensor(x, mesh, placements)
-
     def constrain(x, logical_axes):
-        return place(x, logical_axes)
+        return place(x, mesh, to_placements(to_pspec(tuple(logical_axes), rules, mesh_axes), mesh))
 
     def constrain_tree(tree, spec_tree):
-        return tree_map(lambda x, s: place(x, s.axes), tree, spec_tree)
+        return tree_map(lambda x, s: constrain(x, s.axes), tree, spec_tree)
 
     constrain.tree = constrain_tree
     return constrain
+
+
+def place_owned(x, mesh: DeviceMesh, placements) -> DTensor:
+    """`place`, the shard copied out of ``x``'s storage: a rank then holds
+    its shard's bytes alone (params, optimizer state), not a view that
+    keeps the whole tensor alive."""
+    d = place(x, mesh, placements)
+    return DTensor.from_local(d.to_local().clone(), mesh, d.placements, shape=d.shape,
+                              stride=d.stride(), run_check=False)
+
+
+def shard_tree(tree, spec_tree, rules, mesh: DeviceMesh):
+    """The tensors of ``tree`` (the same values on every rank) as DTensors
+    placed by their ShardSpecs (`spec_tree_to_shardings`): each rank keeps
+    only its shard (`place_owned`). Placing the reference's params is
+    ``params_from_numpy``, then this."""
+    return tree_map(lambda x, sh: place_owned(x, *sh), tree,
+                    spec_tree_to_shardings(spec_tree, rules, mesh))
+
+
+def full_tree(tree):
+    """Every DTensor of ``tree`` as its full tensor (a collective: every
+    rank of its mesh calls it), every other leaf as it is."""
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    # torch's ``implicit_replication`` resets the flag to False on exit,
+    # which would end an enclosing context (a train step's, around the
+    # forward's own): this one restores what it found
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
+def spmd(tree):
+    """The context a sharded computation over ``tree`` runs in: plain
+    tensors that meet DTensors (positions, masks, zero states: the same
+    value on every rank) count as replicated (DTensor's implicit
+    replication). A no-op context for plain trees (a tree is placed as a
+    whole: its first leaf tells)."""
+    sharded = isinstance(next(tree_leaves(tree), None), DTensor)
+    return _implicit_replication() if sharded else contextlib.nullcontext()
+
+
+def vocab_parallel_rows(table: DTensor, ids) -> DTensor:
+    """Rows ``ids`` of a DTensor ``table`` (V, D) whose rows may be split
+    over mesh dims (``vocab → model``): a masked lookup in this rank's
+    rows, zero where another rank holds the row, whose partial sums the
+    next redistribute all-reduces (``Partial`` on those mesh dims). The
+    ``D`` dim is gathered first (FSDP's ``embed → data``). DTensor's own
+    embedding rule fails on such a table (an ``IndexError`` in
+    ``MaskPartial`` with 2-D ids, torch 2.11-2.13), hence this by hand.
+    ``ids``: a plain tensor, the same on every rank."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = table.device_mesh
+    rows = tuple(p if p == Shard(0) else Replicate() for p in table.placements)
+    local = table.redistribute(mesh, rows).to_local()
+    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, rows)
+    lo, n = offset[0], local.shape[0]
+    inside = (ids >= lo) & (ids < lo + n)
+    picked = local[(ids - lo).clamp(0, max(n - 1, 0))]
+    picked = torch.where(inside[..., None], picked, torch.zeros((), dtype=picked.dtype,
+                                                                 device=picked.device))
+    return DTensor.from_local(picked, mesh, [Partial() if p == Shard(0) else Replicate()
+                                             for p in table.placements], run_check=False)
+
+
+def shard_offsets(x: DTensor, dim: int) -> Tuple[int, int]:
+    """(first index, length) of this rank's shard of ``x`` along ``dim``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
+    return offset[dim], shape[dim]
+
+
+def split_over(x: DTensor, dim: int):
+    """The mesh dims that split ``x`` along ``dim`` (of more than 1 rank)."""
+    return [m for m, p in enumerate(x.placements)
+            if p == Shard(dim) and x.device_mesh.size(m) > 1]
 
 
 def named(mesh: DeviceMesh, *axes):

@@ -3,25 +3,35 @@ the model), Adam update — the port of ``repro.training.train_loop``.
 
 Gradients come from autograd: each step takes the params as leaves that
 require grad (views of the given tensors) and returns the new params from
-`repro_torch.training.optimizer.adam_update`, which need none. The
-reference's ``constrain``, ``grad_shardings`` and ``layer_specs`` place
-values on a device mesh; they come with the LM half of the port's mesh
-(ROADMAP.md Queue 1 item 12a-LM), and the port takes none of them yet.
+`repro_torch.training.optimizer.adam_update`, which need none.
+
+On a device mesh the params and Adam's state are DTensors
+(`repro_torch.runtime.sharding.shard_tree`) and the step is SPMD: every
+rank runs it on the same batch and holds its shards. ``constrain`` is
+the reference's activation hook (`runtime.sharding.make_constrain`),
+``layer_specs`` constrains each layer's params inside its remat'd body,
+and ``grad_shardings`` (the params' ``(mesh, placements)`` tree) places
+each microbatch's gradients and the f32 sum on the params' layout, as
+the reference's ``with_sharding_constraint`` does. The new params and
+state keep the placements they came in with (the reference's
+``out_shardings``); the metrics come back as plain tensors.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.runtime.sharding import place, spmd
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.losses import next_token_ce
 
 MOE_AUX_WEIGHT = 0.01
 
 
-def make_loss_fn(model):
+def make_loss_fn(model, constrain=None, layer_specs=None):
     def loss_fn(params, batch):
-        logits, aux = model.forward(params, batch)
+        logits, aux = model.forward(params, batch, constrain=constrain, layer_specs=layer_specs)
         loss = next_token_ce(logits, batch["tokens"], batch.get("loss_mask"))
         metrics = {"ce_loss": loss}
         if "moe_loss" in aux:
@@ -65,7 +75,19 @@ def _split_microbatches(batch, n):
     return {k: rs(k, v) for k, v in batch.items()}
 
 
-def make_train_step(model, adam_cfg: opt_lib.AdamConfig, *, accum_steps: int = 1):
+def _like(new, old):
+    """``new`` in ``old``'s placements (a no-op for plain tensors)."""
+    if isinstance(old, DTensor):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
+def _plain(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def make_train_step(model, adam_cfg: opt_lib.AdamConfig, *, constrain=None, accum_steps: int = 1,
+                    grad_shardings=None, layer_specs=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
 
     With accum_steps > 1 the microbatches run one after another; their
@@ -73,22 +95,31 @@ def make_train_step(model, adam_cfg: opt_lib.AdamConfig, *, accum_steps: int = 1
     the reference's scan and its unrolled form (``accum_unroll``) do; one
     Python loop gives that arithmetic, so the port has no such option. Metrics:
     ``loss``, ``ce_loss``, ``moe_loss`` (MoE), ``grad_norm`` and ``lr``.
+    ``constrain``, ``grad_shardings`` and ``layer_specs``: the reference's
+    (see the module docstring).
     """
-    loss_fn = make_loss_fn(model)
+    loss_fn = make_loss_fn(model, constrain, layer_specs=layer_specs)
 
-    def train_step(params, opt_state, batch):
+    def constrain_grads(g):
+        if grad_shardings is None:
+            return g
+        return tree_map(lambda x, sh: place(x, *sh), g, grad_shardings)
+
+    def step(params, opt_state, batch):
         if accum_steps == 1:
             loss, metrics, grads = loss_and_grads(loss_fn, params, batch)
+            grads = constrain_grads(grads)
         else:
             micro = _split_microbatches(batch, accum_steps)
             grads, loss, metrics = None, None, None
             for i in range(accum_steps):
                 mb = {k: v[i] if v.ndim else v for k, v in micro.items()}
                 l, m, g = loss_and_grads(loss_fn, params, mb)
+                g = constrain_grads(g)
                 if grads is None:  # the sum is kept in place: one f32 tree
                     grads, loss, metrics = tree_map(lambda t: t.to(torch.float32), g), l, m
                 else:
-                    tree_map(lambda a, b: a.add_(b), grads, g)
+                    tree_map(lambda a, b: a.add_(_like(b, a)), grads, g)
                     loss = loss + l
                     metrics = {k: metrics[k] + v for k, v in m.items()}
                 del g
@@ -100,6 +131,11 @@ def make_train_step(model, adam_cfg: opt_lib.AdamConfig, *, accum_steps: int = 1
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
-        return new_params, new_opt, metrics
+        return (tree_map(_like, new_params, params), tree_map(_like, new_opt, opt_state),
+                {k: _plain(v) for k, v in metrics.items()})
+
+    def train_step(params, opt_state, batch):
+        with spmd(params):
+            return step(params, opt_state, batch)
 
     return train_step

@@ -222,8 +222,11 @@ def test_train_runs_on_the_cpu_and_refuses_what_it_cannot_do():
     assert all(m["grad_norm"] > 0 for m in res["metrics"])
     assert len(res["monitor"].history) == 3
     assert int(res["opt"]["step"]) == 3
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_train.train("tinyllama-1.1b", steps=1, model_axis=2, device="cpu")
+    # the reference's clamp: alone, model_axis 2 runs at model 1, the same run
+    clamped = port_train.train("tinyllama-1.1b", reduced=True, steps=3, batch=4, seq=32,
+                               model_axis=2, device="cpu", log_every=0)
+    assert res["mesh"] == clamped["mesh"] == (1, 1)
+    assert clamped["losses"] == res["losses"]
     if not torch.cuda.is_available():  # no fallback: the default is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             port_train.train("tinyllama-1.1b", steps=1)
