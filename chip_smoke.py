@@ -90,7 +90,19 @@ launches each makes:
   at reduced width in f32, to one rank within 1e-5, with each collective
   kind's bytes a step counted; the two-rank params, checkpointed and
   restored unsharded, decode through ``DecodeEngine`` with K4 to the same
-  tokens as the params gathered in memory.
+  tokens as the params gathered in memory;
+- sharded LM decode (phase [16]): two ranks on the one card, a (data 1,
+  model 2) mesh, every KV cache split along its sequence (``kvseq``):
+  gemma3-4b at [7]'s full width through a sharded prefill and
+  ``DecodeEngine(mesh=)`` with K4 on each rank's shard (its launches a
+  step a rank, the prefill's and first step's tokens held to [7]'s, the
+  first step's logits to [8]'s kernel path; one step profiled, its
+  collectives counted), [8]'s reduced f32 model on two ranks against one,
+  and ``decode_long`` (batch 1, a seeded cache of 32,768 positions, rank
+  0's outside every local layer's window) against one rank's unsharded K4
+  decode. Phase [3b] holds K4's shard mode (an offset, the log-sum-exp
+  beside an f32 output, an empty shard) against its plain version and
+  the two shards merged against the unsharded K4.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -162,6 +174,14 @@ LM_PROFILE_STEPS = 8
 # rounding boundary, one bf16 step = at most 2**-7 of the value; atol 1e-4
 # covers values near zero (typical outputs here are ~0.03)
 DECODE_TOL = {"bfloat16": (2 ** -7, 1e-4), "float32": (1e-5, 1e-5)}
+# K4's shard mode against its plain version (rtol = atol): f32 outputs
+# and log-sum-exps, sums in another order; in bf16 P is also split into
+# bf16 hi + lo (an error under 2**-16 of P, times |v| ~ 4 here)
+SHARD_K4_TOL = {"bfloat16": 1e-4, "float32": 1e-5}
+# (window, cache_len) of the shard-mode cases at LM_CACHE over two shards:
+# a local layer whose window [1076, 2100) leaves rank 0 nothing, one across
+# the boundary, a global layer, and a cache not yet past rank 1's offset
+SHARD_K4_CASES = ((1024, 2100), (1024, 1500), (0, 2112), (0, 1000))
 EXACT_LAYERS, EXACT_PROMPT, EXACT_STEPS, EXACT_BATCH = 6, 48, 16, 4
 EXACT_TOL = 1e-4  # f32 logits, CUDA vs CPU
 # Full width in bf16, kernel vs plain path, first-step logits, relative to
@@ -224,6 +244,22 @@ PEAK_BF16_FLOPS = 989.4e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 # on one rank and decoded SHARD_DECODE_STEPS greedy steps with K4
 SHARD_STEPS, SHARD_REDUCED_STEPS, SHARD_DECODE_STEPS, SHARD_TIMEOUT_S = 5, 3, 16, 300
 SHARD_LOSS_RTOL, SHARD_NORM_RTOL, SHARD_REDUCED_RTOL = 1e-3, 1e-2, 1e-5
+# phase [16]: sharded LM decode, two ranks on the card, mesh (data 1, model
+# 2). (a) [7]'s configuration (gemma3-4b, 8 x 2048-token prompts, 2112
+# positions, SHARD_LM_STEPS greedy steps with K4) through a sharded prefill and
+# DecodeEngine(mesh=): K4 once a layer and step a rank, the prefill's and
+# the first step's tokens equal [7]'s, first-step logits within FULL_TOL;
+# (b) [8]'s reduced f32 model, two ranks = one over EXACT_STEPS (tokens
+# equal, logits within EXACT_TOL); (c) decode_long: batch 1, a seeded
+# cache of SHARD_LONG_SEQ positions (half a rank) at SHARD_LONG_POS, no
+# prefill (the plain prefill's logits would take over 30 GB a layer at
+# 32k), SHARD_LONG_STEPS steps; first-step logits within FULL_TOL of one
+# rank's unsharded K4 decode
+SHARD_LONG_SEQ, SHARD_LONG_POS, SHARD_LONG_STEPS = 32768, 32000, 16
+# (a)'s greedy steps: [7]'s 64 cut to 32 for the script's time (each eager
+# step ~0.95 s, host-bound); the follower's wait at the rendezvous covers
+# [15], which runs after the follower starts
+SHARD_LM_STEPS, SHARD_DECODE_TIMEOUT_S = 32, 900
 # device kernels of a train step by name: (kind, regex), first match wins
 TRAIN_KERNEL_KINDS = (("GEMM (cuBLAS)", r"gemm|xmma|nvjet|cutlass"), ("softmax", r"softmax"),
                       ("mask (where)", r"where"), ("cast f32 -> bf16", r"bfloat16_copy"),
@@ -533,15 +569,86 @@ def conv_decode_kernel_phase(torch, dev, params, x):
     log(f"  per {LM_ARCH} decode step ({n_local} local + {cfg.n_layers - n_local} global layers): "
         f"kernel {step_ms:.4f} ms vs bound {step_bound:.4f} ms; max_abs_err bf16 "
         f"{errs['bfloat16']:.3e}, f32 {errs['float32']:.3e}")
+    shard = k4_shard_phase(torch, dev, cfg, base)
     rows.append(dict(name="decode_attn", route="cuda",
                      source="src/repro_torch/kernels/csrc/decode_attn.cu",
                      replaces="src/repro/kernels/decode_attn.py:78", max_abs_err=errs["bfloat16"],
-                     **{key: glob[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}))
+                     **{key: glob[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                     shard=shard))
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound")
     return rows
+
+
+def k4_shard_phase(torch, dev, cfg, base):
+    """K4's shard mode at gemma3-4b's decode shape cut into two kvseq
+    shards of LM_CACHE / 2 positions (what each of [16]'s two ranks
+    holds): each shard at its offset returns (out, lse) in f32, held to
+    its plain version at SHARD_K4_TOL; a shard with no live position
+    gives 0 and -inf exactly; the two merged by log-sum-exp equal the
+    unsharded K4 at DECODE_TOL. Then each shard timed (bf16) beside its
+    plain version, the bound from the shard's live K/V bytes. Returns the
+    K4 row's ``shard`` entry."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.nn.attention import merge_rows
+
+    S, half = LM_CACHE, LM_CACHE // 2
+    log(f"[3b] decode_attn shard mode: {LM_ARCH}'s decode shape over two kvseq shards of {half} "
+        f"positions (offsets 0 and {half}), bf16 and f32; (window, cache_len) in {SHARD_K4_CASES}")
+    empty = 0
+    for dtype, (rtol, atol) in DECODE_TOL.items():
+        q, k, v = (t.to(getattr(torch, dtype)) for t in base)
+        parts = [(lo, k[:, lo:lo + half].contiguous(), v[:, lo:lo + half].contiguous())
+                 for lo in (0, half)]
+        tol = SHARD_K4_TOL[dtype]
+        for window, cache_len in SHARD_K4_CASES:
+            cl = torch.tensor(cache_len, dtype=torch.int32, device=dev)
+            outs, lses = [], []
+            for lo, ks, vs in parts:
+                out, lse = ops.decode_attn(q, ks, vs, cl, window=window, offset=lo, return_lse=True)
+                torch.cuda.synchronize()
+                w_out, w_lse = ref.decode_attn_ref(q, ks, vs, cl, window=window, offset=lo,
+                                                   return_lse=True)
+                what = f"decode_attn shard mode {dtype} window={window} cache_len={cache_len} offset={lo}"
+                live = min(cache_len, lo + half) - max(cache_len - window if window else 0, lo)
+                if live <= 0:
+                    empty += 1
+                    check(bool((out == 0).all()) and bool(torch.isneginf(lse).all()),
+                          f"{what}: no live position, out 0 and lse -inf exactly")
+                e = float((out - w_out).abs().max())
+                check(out.dtype == torch.float32 and torch.allclose(out, w_out, rtol=tol, atol=tol)
+                      and torch.allclose(lse, w_lse, rtol=tol, atol=tol),
+                      f"{what}: out and lse (f32) match the plain version at {tol} (max_abs_err {e:.3e})")
+                outs.append(out)
+                lses.append(lse)
+            merged = merge_rows(torch.stack(outs), torch.stack(lses)).to(q.dtype)
+            whole = ops.decode_attn(q, k, v, cl, window=window)
+            e = float((merged.float() - whole.float()).abs().max())
+            check(torch.allclose(merged.float(), whole.float(), rtol=rtol, atol=atol),
+                  f"decode_attn {dtype} window={window} cache_len={cache_len}: the two shards merged = "
+                  f"the unsharded K4 (rtol={rtol}, atol={atol}; max_abs_err {e:.3e})")
+    check(empty > 0, f"{empty} shard calls with no live position held")
+    q, k, v = (t.to(torch.bfloat16) for t in base)
+    out = {}
+    for what, window, lo in (("global", 0, half), ("local", cfg.local_window, half)):
+        ks, vs = k[:, lo:lo + half].contiguous(), v[:, lo:lo + half].contiguous()
+        cl = torch.tensor(S, dtype=torch.int32, device=dev)
+        live = min(S, lo + half) - max(S - window if window else 0, lo)
+        B, H, hd = q.shape
+        n_bytes = q.nbytes + 2 * B * live * ks.shape[2] * hd * 2 + 4 * B * H * hd + 4 * B * H + 4
+        b_ms, b_by = bound(n_bytes, 4 * B * H * live * hd)
+        t = out[what] = dict(
+            ms=time_ms(torch, lambda: ops.decode_attn(q, ks, vs, cl, window=window, offset=lo,
+                                                      return_lse=True)),
+            plain_ms=time_ms(torch, lambda: ref.decode_attn_ref(q, ks, vs, cl, window=window, offset=lo,
+                                                                return_lse=True)),
+            bound_ms=b_ms, bound_by=b_by, live=live)
+        log(f"  decode_attn shard mode, {what} layer, rank 1's shard [{lo}, {lo + half}) at cache_len {S}, "
+            f"bf16: {live} live; kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / t['ms']:.1f}% of the bound")
+    return out
 
 
 def make_traces(names_and_sizes):
@@ -1058,6 +1165,7 @@ def decode_exactness_phase(torch, dev, lm):
         f"{LM_STEPS * LM_BATCH} (step, request) pairs (printed, not asserted: a bf16 near-tie may flip)")
     check(d0 <= FULL_TOL * scale, f"first-step logits of the kernel and plain paths within "
           f"{FULL_TOL} x max |logit| = {FULL_TOL * scale:.4f}")
+    return first_k.cpu()
 
 
 def n_attention_layers(cfg):
@@ -2485,6 +2593,311 @@ def sharded_train_phase(torch, dev, smi, first_loss_13c):
     return counts["restored"]["decode_attn"]
 
 
+def recording(torch, decoder, logits):
+    """``decoder`` whose every step also keeps its logits (gathered from a
+    mesh, in f32)."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    def step(params, state, token, constrain=None):
+        lg, state = decoder.step(params, state, token, constrain=constrain)
+        logits.append((lg.full_tensor() if isinstance(lg, DTensor) else lg).float())
+        return lg, state
+
+    return dataclasses.replace(decoder, step=step)
+
+
+def host_profile(torch, fn):
+    """One call of ``fn`` under the profiler: wall ms, device busy ms, and
+    the host ops with the most self CPU time (name, ms, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    return dict(wall=wall, busy=sum(r[0] for r in rows) if rows else None,
+                host=[(e.key, e.self_cpu_time_total / 1e3, e.count) for e in host],
+                host_ms=sum(e.self_cpu_time_total for e in prof.key_averages()) / 1e3)
+
+
+def sharded_decode_rank(torch, rank, init):
+    """One rank of phase [16], run by this process (rank 0) and the
+    follower: joins the two-rank group, then (a) gemma3-4b at full width:
+    sharded prefill, its first step's logits, one step's collectives, then
+    DecodeEngine(mesh=) with K4; (b) the reduced f32 model through the
+    engine, each step's logits kept; (c) decode_long from a seeded cache.
+    Rank 0 also runs (b) and (c) unsharded on the card (plain tensors).
+    Returns its numbers as plain data, and rank 0's tensors for the
+    gates."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.specs import decode_state_axes
+    from repro_torch.models.lm import place_state
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.serving.engine import EAGER_WARMUP_STEPS, DecodeEngine, copy_state, lm_decoder
+
+    backend = mesh_mod.init_ranks(rank, 2, init, "cuda", timeout_s=SHARD_DECODE_TIMEOUT_S)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out, keep = {"rank": rank, "backend": backend}, {}
+    try:
+        mesh = mesh_mod.make_mesh((1, 2), ("data", "model"), "cuda")
+        cfg = get_config(LM_ARCH)
+        model = build_model(cfg)
+        full_params = model.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        rules = sh.rules_for(cfg, "decode")
+        constrain = sh.make_constrain(mesh, rules)
+        params = sh.shard_tree(full_params, model.param_specs(), rules, mesh)
+        if rank != 0:  # rank 0 keeps the whole model for (c)'s unsharded run
+            del full_params
+        tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = model.prefill(params, {"tokens": tokens}, constrain=constrain)
+            torch.cuda.synchronize()
+            out["prefill_s"] = time.perf_counter() - t0
+            out["prefill_peak"] = torch.cuda.max_memory_allocated(dev)
+            full = model.rehome_state(state, LM_CACHE)
+            del state
+            first = sh.argmax_last(logits[:, -1])
+            del logits
+            lg, _ = model.decode_step(params, copy_state(full), first, constrain=constrain,
+                                      use_kernel=True)
+            keep["logits0"] = lg.full_tensor().float().cpu()
+            with mesh_mod.CollectiveCounter() as counter:
+                model.decode_step(params, copy_state(full), first, constrain=constrain,
+                                  use_kernel=True)
+            out["calls"], out["bytes"] = dict(counter.calls), dict(counter.bytes)
+            # one step profiled on rank 0 (rank 1 runs it plain, as its peer)
+            st = copy_state(full)
+
+            def step():
+                model.decode_step(params, st, first, constrain=constrain, use_kernel=True)
+
+            if rank == 0:
+                out["profile"] = host_profile(torch, step)
+            else:
+                step()
+            del st
+        engine = DecodeEngine(lm_decoder(model, use_kernel=True), params, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        stream, final, tps = engine.generate(full, first, SHARD_LM_STEPS)
+        out["a"] = dict(mode=engine.mode, why=engine.mode_reason, tps=tps,
+                        k4=ops.launches["decode_attn"], launches=dict(ops.launches),
+                        steps=SHARD_LM_STEPS + min(SHARD_LM_STEPS, EAGER_WARMUP_STEPS),
+                        peak=torch.cuda.max_memory_allocated(dev), pos=int(sh.local(final["pos"])),
+                        first=first.cpu().tolist(), stream=stream.cpu().tolist(),
+                        placed=str(tuple(full["k"].placements)),
+                        local_k=tuple(full["k"].to_local().shape))
+        del full, final, engine, stream
+
+        # (b) reduced f32, two ranks against one
+        rcfg = reduced(cfg, n_layers=EXACT_LAYERS, dtype="float32")
+        rmodel = build_model(rcfg)
+        rplain = rmodel.init(torch.Generator().manual_seed(SEED), device=dev)
+        rrules = sh.rules_for(rcfg, "decode")
+        rparams = sh.shard_tree(rplain, rmodel.param_specs(), rrules, mesh)
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+            0, rcfg.vocab, (EXACT_BATCH, EXACT_PROMPT)).astype(np.int32)).to(dev)}
+        lgs = []
+        with torch.no_grad():
+            logits, st = rmodel.prefill(rparams, batch, constrain=sh.make_constrain(mesh, rrules))
+            rfull = rmodel.rehome_state(st, EXACT_PROMPT + EXACT_STEPS)
+            rfirst = sh.argmax_last(logits[:, -1])
+        rengine = DecodeEngine(recording(torch, lm_decoder(rmodel, use_kernel=True), lgs), rparams,
+                               mesh=mesh)
+        rtoks, _, _ = rengine.generate(rfull, rfirst, EXACT_STEPS)
+        out["b"] = dict(first=rfirst.cpu().tolist(), tokens=rtoks.cpu().tolist())
+        if rank == 0:
+            keep["b_logits"] = torch.stack(lgs[-EXACT_STEPS:]).cpu()
+            with torch.no_grad():
+                logits, st = rmodel.prefill(rplain, batch)
+                one_first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+                toks, one_lgs = eager_stream(torch, rmodel, rplain,
+                                             rmodel.rehome_state(st, EXACT_PROMPT + EXACT_STEPS),
+                                             one_first, EXACT_STEPS, use_kernel=True)
+            keep["b_one"] = (one_first.cpu().tolist(), toks.cpu().tolist(), one_lgs.float().cpu())
+        del rplain, rparams, rfull, rengine, lgs
+
+        # (c) decode_long: batch 1, a seeded cache, no prefill
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+        shape = (cfg.n_layers, 1, SHARD_LONG_SEQ, cfg.n_kv_heads, cfg.head_dim)
+        cache = {"k": torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16),
+                 "v": torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16),
+                 "pos": torch.tensor(SHARD_LONG_POS, dtype=torch.int32, device=dev)}
+        tok = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+            0, cfg.vocab, (1,)).astype(np.int32)).to(dev)
+        lrules = sh.rules_for(cfg, "decode_long")
+        lconstrain = sh.make_constrain(mesh, lrules)
+        placed = place_state(cache, decode_state_axes(cfg), lconstrain)
+        with torch.no_grad():
+            lg, _ = model.decode_step(params, copy_state(placed), tok, constrain=lconstrain,
+                                      use_kernel=True)
+        keep["c_logits0"] = lg.full_tensor().float().cpu()
+        lengine = DecodeEngine(lm_decoder(model, use_kernel=True), params, mesh=mesh,
+                               rules_mode="decode_long")
+        ops.reset_launches()
+        ltoks, _, ltps = lengine.generate(placed, tok, SHARD_LONG_STEPS)
+        out["c"] = dict(tps=ltps, k4=ops.launches["decode_attn"], tokens=ltoks.cpu().tolist(),
+                        steps=SHARD_LONG_STEPS + min(SHARD_LONG_STEPS, EAGER_WARMUP_STEPS),
+                        placed=str(tuple(placed["k"].placements)),
+                        offset=sh.shard_offsets(placed["k"], 2)[0])
+        del placed, lengine
+        if rank == 0:
+            with torch.no_grad():
+                lg, _ = model.decode_step(full_params, copy_state(cache), tok, use_kernel=True)
+                keep["c_one_logits0"] = lg.float().cpu()
+            one, _, one_tps = DecodeEngine(lm_decoder(model, use_kernel=True), full_params).generate(
+                cache, tok, SHARD_LONG_STEPS)
+            keep["c_one"] = (one.cpu().tolist(), one_tps)
+        dist.barrier()
+    finally:
+        mesh_mod.close_peer_buffers()
+        dist.destroy_process_group()
+    return out, keep
+
+
+def sharded_decode_follower(rank, init, queue):
+    """Phase [16]'s second rank, started with the spawn method."""
+    import torch
+
+    cuda_flags(torch)
+    try:
+        queue.put(sharded_decode_rank(torch, rank, init)[0])
+    except BaseException as e:  # the controller reports it and fails
+        queue.put({"rank": rank, "error": repr(e)})
+        raise
+
+
+def start_decode_follower():
+    """Phase [16]'s second rank, started before [15] so that it has reached
+    the card by [16]; it waits at the group's rendezvous (its file store)
+    meanwhile. Returns what `sharded_decode_phase` takes."""
+    import multiprocessing
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    init = f"file://{work.name}/store"
+    mp = multiprocessing.get_context("spawn")
+    queue = mp.Queue()
+    follower = mp.Process(target=sharded_decode_follower, args=(1, init, queue), daemon=True)
+    follower.start()
+    return follower, queue, init, work
+
+
+def sharded_decode_phase(torch, dev, smi, want, started):
+    """Phase [16]: sharded LM decode, two ranks on the one card on a (data
+    1, model 2) mesh (see the SHARD_LONG_* constants and the module
+    docstring). ``want``: [7]'s first tokens and first decode step's
+    tokens, [8]'s first-step logits of [7]'s kernel path (CPU);
+    ``started``: `start_decode_follower`'s. Returns (a)'s K4 launches a
+    rank."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    log(f"[16] sharded LM decode: {LM_ARCH}, two ranks on {dev}, mesh (data 1, model 2), the KV "
+        f"caches split along their sequence (kvseq -> model) ({smi})")
+    follower, queue, init, work = started
+    try:
+        mine, keep = sharded_decode_rank(torch, 0, init)
+        theirs = None
+        deadline = time.perf_counter() + SHARD_DECODE_TIMEOUT_S
+        while theirs is None and time.perf_counter() < deadline:
+            try:
+                theirs = queue.get(timeout=5)
+            except Exception:  # queue.Empty: the follower may have died
+                if not follower.is_alive():
+                    break
+        check(theirs is not None, f"the follower reported (exit code {follower.exitcode})")
+        follower.join(120)
+        check("error" not in theirs and follower.exitcode == 0,
+              f"the follower ran its rank to the end ({theirs.get('error', 'exit 0')})")
+    finally:
+        if follower.is_alive():
+            follower.kill()
+        work.cleanup()
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(LM_ARCH)
+    L = cfg.n_layers
+    a, ta = mine["a"], theirs["a"]
+    ms = 1e3 * LM_BATCH / a["tps"]
+    log(f"  (a) {LM_ARCH} at full width, backend {mine['backend']}, engine mode {a['mode']} "
+        f"({a['why']}); caches {a['placed']}, local k {a['local_k']}: prefill {LM_BATCH} x {LM_PROMPT} "
+        f"tokens {mine['prefill_s']:.3f} s (rank 1 {theirs['prefill_s']:.3f} s), peak "
+        f"{mine['prefill_peak'] / 1e9:.2f} / {theirs['prefill_peak'] / 1e9:.2f} GB; decode {SHARD_LM_STEPS} steps "
+        f"x {LM_BATCH}: {a['tps']:.1f} tokens/s, {ms:.3f} ms a step (rank 1 {ta['tps']:.1f} tokens/s), "
+        f"peak {a['peak'] / 1e9:.2f} / {ta['peak'] / 1e9:.2f} GB a rank; no speed claimed: both ranks "
+        f"share one card ({smi})")
+    p = mine["profile"]
+    log(f"  (a) one step profiled on rank 0: wall {p['wall']:.1f} ms, device busy "
+        + (f"{p['busy']:.1f} ms" if p["busy"] is not None else "not measured (no device rows)")
+        + f", host ops' self CPU {p['host_ms']:.1f} ms; most: "
+        + ", ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in p["host"]))
+    for r in (mine, theirs):
+        log(f"  (a) rank {r['rank']} collectives a step (calls, bytes handed in): "
+            + ", ".join(f"{k} {c} x, {r['bytes'][k] / 1e6:.3f} MB" for k, c in sorted(r["calls"].items()))
+            + f"; total {sum(r['bytes'].values()) / 1e6:.3f} MB")
+    for r in (a, ta):
+        check(r["k4"] == L * r["steps"] and sum(r["launches"].values()) == r["k4"],
+              f"(a) K4 on each rank's kvseq shard, once a layer and step: {r['k4']} launches = {L} x "
+              f"{r['steps']} (warm-up {r['steps'] - SHARD_LM_STEPS} + {SHARD_LM_STEPS})")
+    check(a["stream"] == ta["stream"] and a["pos"] == LM_PROMPT + SHARD_LM_STEPS
+          and a["mode"] == "eager",
+          f"(a) both ranks return the same tokens; final position {a['pos']}")
+    check(a["first"] == want["first"] and a["stream"][0] == want["stream0"],
+          f"(a) the sharded prefill's greedy tokens and the first decode step's equal [7]'s: "
+          f"{a['stream'][0]}")
+    scale = float(want["logits0"].abs().max())
+    d0 = float((keep["logits0"] - want["logits0"]).abs().max())
+    check(d0 <= FULL_TOL * scale, f"(a) first-step logits within {FULL_TOL} x max |logit| = "
+          f"{FULL_TOL * scale:.4f} of [7]'s kernel path (max |diff| {d0:.4f})")
+    agree = float(np.mean(np.array(a["stream"]) == np.array(want["stream"][:SHARD_LM_STEPS])))
+    log(f"  (a) greedy tokens equal to [7]'s over {SHARD_LM_STEPS} steps: {100 * agree:.2f}% (printed, not "
+        "gated: a bf16 near-tie may flip)")
+
+    b = mine["b"]
+    one_first, one_toks, one_lgs = keep["b_one"]
+    db = float((keep["b_logits"] - one_lgs).abs().max())
+    check(b["first"] == one_first and b["tokens"] == one_toks and theirs["b"] == b
+          and db <= EXACT_TOL,
+          f"(b) reduced f32 ({EXACT_LAYERS} layers): two ranks' tokens = one rank's over "
+          f"{EXACT_STEPS} steps, logits within {EXACT_TOL} (max |diff| {db:.3e})")
+
+    c, tc = mine["c"], theirs["c"]
+    one_toks, one_tps = keep["c_one"]
+    scale = float(keep["c_one_logits0"].abs().max())
+    dc = float((keep["c_logits0"] - keep["c_one_logits0"]).abs().max())
+    log(f"  (c) decode_long: batch 1, {SHARD_LONG_SEQ} positions (rank 1's from {tc['offset']}), pos "
+        f"{SHARD_LONG_POS}, caches {c['placed']}: {c['tps']:.2f} tokens/s, one rank unsharded (graph) "
+        f"{one_tps:.2f}; tokens equal to one rank's: "
+        f"{100 * float(np.mean(np.array(c['tokens']) == np.array(one_toks))):.2f}%")
+    for r in (c, tc):
+        check(r["k4"] == L * r["steps"], f"(c) K4 on each rank's shard (rank 0's holds no position of "
+              f"a local layer's window), {r['k4']} launches = {L} x {r['steps']}")
+    check(c["tokens"] == tc["tokens"] and dc <= FULL_TOL * scale,
+          f"(c) both ranks' tokens equal; first-step logits within {FULL_TOL} x max |logit| = "
+          f"{FULL_TOL * scale:.4f} of one rank's unsharded K4 decode (max |diff| {dc:.4f})")
+    log(f"[16] sharded LM decode phase: {time.perf_counter() - t_phase:.1f} s")
+    return a["k4"]
+
+
 def ptxas_entries(log):
     """Per kernel entry in nvcc's -Xptxas -v output: registers, static shared
     memory, stack frame and spills (stores, loads) in bytes."""
@@ -2587,7 +3000,8 @@ def main():
     del x, routes
     lm = lm_phase(torch, dev)
     launches["decode_attn"] = lm["launches"]
-    decode_exactness_phase(torch, dev, lm)
+    want16 = {"first": lm["first"].cpu().tolist(), "stream0": lm["stream"][0].cpu().tolist(),
+              "stream": lm["stream"].cpu().tolist(), "logits0": decode_exactness_phase(torch, dev, lm)}
     mark("[7]-[8] gemma3-4b decode")
     del lm
     kinds_phase(torch, dev, arrays)
@@ -2605,9 +3019,14 @@ def main():
     mark("[13] LM training")
     mesh_phase(torch, dev, pcfg, params, arrays, ring, launches["fused_step"])
     mark("[14] lane mesh")
+    started16 = start_decode_follower()
     k4_sharded = sharded_train_phase(torch, dev, smi, first_loss_13c)
     log(f"[15] K4 launches decoding the two-rank model: {k4_sharded}")
     mark("[15] sharded LM training")
+    k4_ranks = sharded_decode_phase(torch, dev, smi, want16, started16)
+    log(f"[16] K4 launches a rank, (a): {k4_ranks}")
+    next(r for r in rows if r["name"] == "decode_attn")["shard"]["launches_a_rank"] = k4_ranks
+    mark("[16] sharded LM decode")
     log("phase wall seconds: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 
@@ -2617,7 +3036,7 @@ def main():
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("shard",) if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -31,7 +31,7 @@ KERNELS = {
     "fused_step": ("fused_step.cu", "fused_step_launch", [_P] * 16 + [_I] * 6 + [_P]),
     "cnn_trunk": ("cnn_trunk.cu", "cnn_trunk_launch", [_P] * 8 + [_I] * 6 + [_P]),
     "conv2s": ("conv2s.cu", "conv2s_launch", [_P] * 4 + [_I] * 5 + [_P]),
-    "decode_attn": ("decode_attn.cu", "decode_attn_launch", [_P] * 8 + [_I] * 13 + [_P]),
+    "decode_attn": ("decode_attn.cu", "decode_attn_launch", [_P] * 9 + [_I] * 15 + [_P]),
 }
 
 

@@ -296,9 +296,9 @@ def decode_parts(entries, g, dev, stream):
         part_acc = torch.empty(B, H, plan.splits, hd, device="cuda")
         for variant in VARIANTS["decode_attn.cu"][0]:
             args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(), part_ml.data_ptr(),
-                    part_acc.data_ptr(), tickets.data_ptr(), out.data_ptr(), B, S, H, KV, hd, 1,
-                    window, plan.splits, plan.stages, plan.rt, plan.row_groups, plan.smem_bytes,
-                    dev, stream)
+                    part_acc.data_ptr(), tickets.data_ptr(), out.data_ptr(), None, B, S, H, KV, hd,
+                    1, window, 0, S, plan.splits, plan.stages, plan.rt, plan.row_groups,
+                    plan.smem_bytes, dev, stream)
             us = time_us(checked(entries["decode_attn", variant], args))
             rate = kv_bytes / (us * 1e-6)  # bytes a second
             line.append(f"{variant} {us:.2f} us ({100 * 1e6 * n_bytes / PEAK_BYTES_PER_S / us:.1f}% of "

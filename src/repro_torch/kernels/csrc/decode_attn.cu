@@ -4,10 +4,18 @@
 // (_decode_attn_kernel / decode_attn_pallas): for each batch row b and
 // query head h = kv * G + g,
 //   out[b, h] = softmax_s(q[b, h] . k[b, s, kv] / sqrt(hd)) @ v[b, s, kv]
-// over the live positions s: s < min(cache_len, S) and, if window > 0,
-// s >= cache_len - window. f32 logits and accumulator; the output is
-// acc / max(l, 1e-30) in the inputs' type (f32 or bf16). With no live
-// position it is zeros.
+// over the live positions s: with c = min(cache_len, limit), offset + s < c
+// and, if window > 0, offset + s >= c - window. f32 logits and accumulator;
+// the output is acc / max(l, 1e-30) in the inputs' type (f32 or bf16). With
+// no live position it is zeros.
+//
+// Shard mode: k/v hold positions [offset, offset + S) of a cache split
+// along its sequence (one rank's kvseq shard); limit is then past any
+// cache_len, so the window is measured from the global cache_len, and a
+// shard may hold no live position. With an lse buffer the output is f32
+// and each row's log-sum-exp m + log l of its live logits goes beside it
+// (-inf with none live), so that the ranks' rows merge without rounding.
+// The unsharded call is offset 0, limit S, no lse.
 //
 // What bounds it on this card: bytes. Each K/V element read feeds one
 // multiply-add per query head of its group, about 2 * G operations a byte
@@ -112,8 +120,9 @@ struct Args {
   float* part_ml;     // (B, H, n_splits, 2): m, l
   float* part_acc;    // (B, H, n_splits, HD)
   unsigned* tickets;  // (B, KV, row_groups), 0 between calls
-  T* out;
-  int S, H, KV, G, window, n_splits, stages, row_groups;
+  void* out;          // (B, H, HD): T, or f32 with lse
+  float* lse;         // (B, H) or null
+  int S, H, KV, G, window, n_splits, stages, row_groups, offset, limit;
 };
 
 // ------------------------------------------------------------ PTX wrappers
@@ -178,6 +187,16 @@ __device__ __forceinline__ void store_out4(__nv_bfloat16* p, float4 y, float s) 
   const __nv_bfloat162 hi = __floats2bfloat162_rn(y.z * s, y.w * s);
   *reinterpret_cast<uint2*>(p) =
       make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// Output elements [i, i + 4): y * s, in T, or in f32 in shard mode
+template <typename T>
+__device__ __forceinline__ void store_out(const Args<T>& a, size_t i, float4 y, float s) {
+  if (a.lse == nullptr) {
+    store_out4(static_cast<T*>(a.out) + i, y, s);
+  } else {
+    store_out4(static_cast<float*>(a.out) + i, y, s);
+  }
 }
 
 // ------------------------------------------------------------ one 16-position step
@@ -416,7 +435,10 @@ __device__ __forceinline__ void merge_splits(const Args<T>& a, unsigned char* ri
     for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
     wts[r * kMaxSplits + lane] = w0;
     wts[r * kMaxSplits + lane + 32] = w1;
-    if (lane == 0) den[r] = 1.f / fmaxf(L, 1e-30f);
+    if (lane == 0) {
+      den[r] = 1.f / fmaxf(L, 1e-30f);
+      if (a.lse != nullptr) a.lse[(size_t)b * a.H + h0 + r] = M + logf(L);  // -inf with none live
+    }
   }
   __syncthreads();
 
@@ -453,7 +475,7 @@ __device__ __forceinline__ void merge_splits(const Args<T>& a, unsigned char* ri
     if (r >= n_rows) break;
     const float4 y = make_float4(even[j].x + odd[j].x, even[j].y + odd[j].y, even[j].z + odd[j].z,
                                  even[j].w + odd[j].w);
-    store_out4(a.out + ((size_t)b * a.H + h0 + r) * HD + e, y, den[r]);
+    store_out(a, ((size_t)b * a.H + h0 + r) * HD + e, y, den[r]);
   }
 }
 
@@ -507,9 +529,10 @@ decode_attn_kernel(const Args<T> a) {
   const int h0 = kv * a.G + grp * ROWS;          // the block's first query head
   const int n_rows = min(ROWS, a.G - grp * ROWS);  // its heads; rows past them are zeros
 
-  // live positions [lo, hi) and this split's share [s0, s1)
-  const int hi = min(__ldg(a.cache_len), a.S);
-  const int lo = a.window > 0 ? max(hi - a.window, 0) : 0;
+  // live positions [lo, hi) of this shard and this split's share [s0, s1)
+  const int c = min(__ldg(a.cache_len), a.limit);
+  const int hi = min(c - a.offset, a.S);
+  const int lo = a.window > 0 ? max(c - a.window - a.offset, 0) : 0;
   const int live = max(hi - lo, 0);
   const int chunk = ((live + a.n_splits - 1) / a.n_splits + 15) / 16 * 16;
   const int s0 = lo + split * chunk;
@@ -637,7 +660,9 @@ decode_attn_kernel(const Args<T> a) {
       y = fma4(wt, *reinterpret_cast<const float4*>(m_acc + (w * ROWS + r) * (HD + 4) + e), y);
     }
     if (a.n_splits == 1) {
-      store_out4(a.out + ((size_t)b * a.H + h0 + r) * HD + e, y, 1.f / fmaxf(L, 1e-30f));
+      const size_t row = (size_t)b * a.H + h0 + r;
+      store_out(a, row * HD + e, y, 1.f / fmaxf(L, 1e-30f));
+      if (e == 0 && a.lse != nullptr) a.lse[row] = M + logf(L);  // -inf with none live
     } else {
       const size_t row = ((size_t)b * a.H + h0 + r) * a.n_splits + split;
       *reinterpret_cast<float4*>(a.part_acc + row * HD + e) = y;
@@ -752,8 +777,10 @@ extern "C" int decode_attn_smem_bytes(int hd, int is_bf16, int rt, int stages) {
 }
 
 // q (B, H, hd), k/v (B, S, KV, hd), out (B, H, hd), all of one type: bf16
-// if is_bf16 else f32, contiguous, 16-byte aligned. cache_len: one int32 in
-// device memory. Scratch, f32: part_ml (B, H, n_splits, 2) and part_acc
+// if is_bf16 else f32, contiguous, 16-byte aligned; with lse (B, H) f32 not
+// null (shard mode), out is f32. cache_len: one int32 in device memory,
+// taken as min(cache_len, limit); k/v hold the cache's positions
+// [offset, offset + S). Scratch, f32: part_ml (B, H, n_splits, 2) and part_acc
 // (B, H, n_splits, hd), not read before written; tickets: B * KV *
 // row_groups uint32 that are 0, and are 0 again when the kernel ends. The
 // plan (n_splits, stages, rt row tiles a block, row_groups blocks a kv
@@ -762,9 +789,10 @@ extern "C" int decode_attn_smem_bytes(int hd, int is_bf16, int rt, int stages) {
 // on `stream`.
 extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
                                   const void* cache_len, void* part_ml, void* part_acc,
-                                  void* tickets, void* out, int B, int S, int H, int KV, int hd,
-                                  int is_bf16, int window, int n_splits, int stages, int rt,
-                                  int row_groups, int smem, int device, void* stream) {
+                                  void* tickets, void* out, void* lse, int B, int S, int H, int KV,
+                                  int hd, int is_bf16, int window, int offset, int limit,
+                                  int n_splits, int stages, int rt, int row_groups, int smem,
+                                  int device, void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || n_splits <= 0 || n_splits > kMaxSplits ||
       stages < 2 || stages > kMaxStages || row_groups <= 0 || rt * 16 * row_groups < H / KV) {
     return (int)cudaErrorInvalidValue;
@@ -777,14 +805,15 @@ extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
     using T = __nv_bfloat16;
     const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                     static_cast<const int*>(cache_len), static_cast<float*>(part_ml),
-                    static_cast<float*>(part_acc), static_cast<unsigned*>(tickets),
-                    static_cast<T*>(out), S, H, KV, G, window, n_splits, stages, row_groups};
+                    static_cast<float*>(part_acc), static_cast<unsigned*>(tickets), out,
+                    static_cast<float*>(lse), S, H, KV, G, window, n_splits, stages, row_groups,
+                    offset, limit};
     return (int)launch_t<T>(a, B, hd, rt, smem, st);
   }
   const Args<float> a{static_cast<const float*>(q), static_cast<const float*>(k),
                       static_cast<const float*>(v), static_cast<const int*>(cache_len),
                       static_cast<float*>(part_ml), static_cast<float*>(part_acc),
-                      static_cast<unsigned*>(tickets), static_cast<float*>(out), S, H, KV, G,
-                      window, n_splits, stages, row_groups};
+                      static_cast<unsigned*>(tickets), out, static_cast<float*>(lse), S, H, KV,
+                      G, window, n_splits, stages, row_groups, offset, limit};
   return (int)launch_t<float>(a, B, hd, rt, smem, st);
 }

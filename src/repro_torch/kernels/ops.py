@@ -16,7 +16,7 @@ the card ran.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -34,6 +34,9 @@ TRUNK_WIDTHS = (64, 128, 128)
 # opt into.
 CONV2S_MAX_CO = 256
 CONV2S_SMEM_BYTES = 232_448
+
+
+_INT32_MAX = 2**31 - 1
 
 
 def reset_launches() -> None:
@@ -316,21 +319,30 @@ def _decode_tickets(dev: torch.device, n: int) -> torch.Tensor:
 
 
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_len, *,
-                window: int = 0) -> torch.Tensor:
+                window: int = 0, offset: Optional[int] = None, return_lse: bool = False):
     """Flash-decode GQA. q: (B,H,hd); k,v: (B,S,KV,hd); cache_len: scalar
     int32 (a device tensor on the decode path; it is never read on the
     host), clamped to S as the reference's wrapper does. -> (B,H,hd) in q's
     dtype. On the card q, k and v share one dtype, f32 or bf16, and the
-    kernel runs as one launch of `decode_plan`'s grid. At least one
-    position must be live (the decode path's cache_len is pos + 1 >= 1):
-    with none, the kernel returns zeros where the plain version averages
-    every v row."""
+    kernel runs as one launch of `decode_plan`'s grid. A row with no live
+    position is 0.
+
+    Shard mode, for one rank's ``kvseq`` shard of a cache split along its
+    sequence: ``offset`` (a Python int) is the global position of k's and
+    v's first row; ``cache_len`` is then the global one (not clamped to
+    S), from which the window is measured, and the shard may hold no live
+    position. ``return_lse`` returns ``(out, lse)``: out in f32 and each
+    row's log-sum-exp of its live logits, (B, H) f32 (-inf with none
+    live), which the ranks merge (`repro_torch.nn.attention`)."""
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     cache_len = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
     if q.device.type == "cpu":
-        clamped = torch.clamp(cache_len, max=S)
-        return ref.decode_attn_ref(q, k, v, clamped, window=window).to(q.dtype)
+        if offset is None:
+            cache_len = torch.clamp(cache_len, max=S)
+        got = ref.decode_attn_ref(q, k, v, cache_len, window=window, offset=offset,
+                                  return_lse=return_lse)
+        return got if return_lse else got.to(q.dtype)
     dev = _cuda_device(q, k, v)
     if cache_len.numel() != 1:
         raise ValueError(f"cache_len must be a scalar, got shape {tuple(cache_len.shape)}")
@@ -346,9 +358,10 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_len, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start 16-byte aligned (the kernel copies 16-byte units)")
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
+    out = torch.empty((B, H, hd), dtype=torch.float32 if return_lse else q.dtype, device=dev)
+    lse = torch.empty((B, H), dtype=torch.float32, device=dev) if return_lse else None
     if B == 0 or H == 0:
-        return out
+        return (out, lse) if return_lse else out
     props = torch.cuda.get_device_properties(dev)
     plan = decode_plan(B, S, H, KV, hd, q.element_size(), props.multi_processor_count,
                        getattr(props, "shared_memory_per_block_optin", 0) or DECODE_SMEM_OPTIN)
@@ -357,6 +370,8 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_len, *,
     part_acc = torch.empty((B, H, plan.splits, hd), dtype=torch.float32, device=dev)
     _launch("decode_attn", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
             part_ml.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(), out.data_ptr(),
-            B, S, H, KV, hd, int(q.dtype == torch.bfloat16), int(window), plan.splits,
-            plan.stages, plan.rt, plan.row_groups, plan.smem_bytes, dev.index)
-    return out
+            None if lse is None else lse.data_ptr(), B, S, H, KV, hd,
+            int(q.dtype == torch.bfloat16), int(window), 0 if offset is None else int(offset),
+            S if offset is None else _INT32_MAX, plan.splits, plan.stages, plan.rt,
+            plan.row_groups, plan.smem_bytes, dev.index)
+    return (out, lse) if return_lse else out

@@ -45,12 +45,19 @@ def fused_step_ref(layers, state, cur_feat, cur_addr, *, seq_padded: int):
     return cnn_trunk_ref(layers, x)
 
 
-def decode_attn_ref(q, k, v, cache_len, *, window: int = 0):
+def decode_attn_ref(q, k, v, cache_len, *, window: int = 0, offset=None, return_lse=False):
     """Single-token GQA decode attention (fp32 softmax).
 
     q: (B, H, hd); k, v: (B, S, KV, hd); cache_len: scalar int32 (tensor or
     int). window > 0 masks to the trailing window (linear cache layout).
     Returns (B, H, hd) in f32.
+
+    ``offset`` (an int) makes k, v the shard of a longer cache whose
+    position 0 is the cache's position ``offset``: a position p is live
+    where ``cache_len - window <= offset + p < cache_len``, with the global
+    ``cache_len`` (not clamped to S). A row with no live position is 0
+    (with ``return_lse``, its log-sum-exp -inf). ``return_lse`` also
+    returns each row's log-sum-exp of the live logits, (B, H) f32.
     """
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -58,11 +65,14 @@ def decode_attn_ref(q, k, v, cache_len, *, window: int = 0):
     qg = q.reshape(B, KV, G, hd).to(torch.float32)
     logits = torch.einsum("bkgh,bskh->bkgs", qg, k.to(torch.float32))
     logits = logits / float(np.sqrt(np.float32(hd)))
-    pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    pos = torch.arange(S, dtype=torch.int32, device=q.device) + (offset or 0)
     valid = pos < cache_len
     if window > 0:
         valid = valid & (pos >= cache_len - window)
-    logits = torch.where(valid, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(torch.where(valid, logits, -1e30), dim=-1)
     ctx = torch.einsum("bkgs,bskh->bkgh", probs, v.to(torch.float32))
-    return ctx.reshape(B, H, hd)
+    ctx = torch.where(valid.any(), ctx, 0.0).reshape(B, H, hd)
+    if not return_lse:
+        return ctx
+    lse = torch.logsumexp(torch.where(valid, logits, -torch.inf), dim=-1)
+    return ctx, lse.reshape(B, H)

@@ -17,8 +17,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.lm import (embed_scale, layer_list, layer_spec, rehome_into, remat,
-                                  to_storage, tree_from_numpy)
+from repro_torch.launch.specs import decode_state_axes
+from repro_torch.models.lm import (embed_scale, layer_list, layer_spec, place_state, rehome_into,
+                                  remat, state_device, to_storage, tree_from_numpy)
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import ssm
 from repro_torch.nn.attention import KVCache
@@ -180,8 +181,8 @@ def rehome_state(cfg, state, seq_len: int):
     ``min(T, window)`` positions (a quirk of the reference: after a prompt
     shorter than the window, decoding attends over a ring the prompt's
     length, not the window)."""
-    B = next(iter(state["layer_0"].values())).shape[0]
-    return rehome_into(init_decode_state(cfg, B, seq_len, state["pos"].device), state)
+    first = next(iter(state["layer_0"].values()))
+    return rehome_into(init_decode_state(cfg, first.shape[0], seq_len, state_device(first)), state)
 
 
 def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_kernel=False):
@@ -193,7 +194,7 @@ def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_ker
     dtype = _dtype(cfg)
     B = token.shape[0]
     pos = state["pos"]
-    x = _embed(params, cfg, token[:, None], dtype)[:, 0]
+    x = constrain(_embed(params, cfg, token[:, None], dtype)[:, 0], ("batch", None))
     pos_b = pos.to(torch.int32).expand(B, 1)
     new_state = {"pos": pos + 1}
     for i, lp in enumerate(params["blocks"]):
@@ -212,15 +213,16 @@ def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_ker
             cache_len = torch.clamp(pos + 1, max=S_cache).to(torch.int32)
             ctx = attn_lib.decode_attention(q[:, 0], cache, cache_len, dtype=dtype,
                                             use_kernel=use_kernel)
-            y = attn_lib.attn_out(lp["attn"], ctx[:, None], dtype=dtype)[:, 0]
+            ctx = constrain(ctx[:, None], ("batch", None, "heads", None))
+            y = attn_lib.attn_out(lp["attn"], ctx, dtype=dtype)[:, 0]
         else:
             y, rec = ssm.recurrent_block_step(lp["rec"], h, ssm.RecurrentState(ls["h"], ls["conv"]),
                                               n_heads=cfg.rnn_heads, dtype=dtype)
             ls["h"].copy_(rec.h)
             ls["conv"].copy_(rec.conv)
-        x = x + y
+        x = x + constrain(y, ("batch", None))
         h = norm_apply(cfg, lp["ln2"], x[:, None, :], dtype)
-        x = x + gated_mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)[:, 0]
+        x = x + constrain(gated_mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)[:, 0], ("batch", None))
     return _logits(params, cfg, x, dtype), new_state
 
 
@@ -246,4 +248,5 @@ def prefill(params, cfg, batch, *, constrain=_noop_constrain):
             state[f"layer_{i}"] = {"h": kv.h, "conv": kv.conv}
 
     x = _layers_seq(params, cfg, tokens, keep, constrain)
-    return _logits(params, cfg, x[:, -1:, :], dtype), state
+    return (_logits(params, cfg, x[:, -1:, :], dtype),
+            place_state(state, decode_state_axes(cfg), constrain))

@@ -35,6 +35,14 @@ every op runs on the ranks' shards.
 tensors of ``state`` in place and returns a state that shares them. SWA
 archs (mixtral) decode into a ring buffer of ``min(seq_len, window)``
 positions, written at ``pos % S``.
+
+**Sharded decode.** With params and a decode state placed on a mesh
+(`state_logical_axes`: the cache's sequence on ``kvseq``), `decode_step`
+attends on each rank's shard of every layer's cache and merges the ranks
+(`repro_torch.nn.attention`); `prefill` returns its caches placed on
+``kvseq`` and `rehome_state` grows them into a longer placed state, each
+rank writing its own positions (`repro_torch.runtime.sharding.grow_along`).
+``pos`` stays one device scalar, the same on every rank.
 """
 from __future__ import annotations
 
@@ -42,10 +50,11 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch._tree import tree_leaves
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.nn import transformer as tfm
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.init import ShardSpec, dense_init, embed_init, split_keys
@@ -53,6 +62,7 @@ from repro_torch.nn.layers import embed as embed_lookup
 from repro_torch.nn.layers import embed_specs
 from repro_torch.nn.moe import dropped_share, load_balancing_loss
 from repro_torch.nn.transformer import _noop_constrain
+from repro_torch.runtime.sharding import grow_along
 
 
 def _dtype(cfg):
@@ -324,12 +334,29 @@ def init_decode_state(cfg, batch_size: int, seq_len: int, device: DeviceLike = N
     }
 
 
+def place_state(state, axes, constrain):
+    """A decode state (a prefill's: its caches' heads split as the
+    attention computed them) placed by ``axes``, its ShardSpec tree: each
+    tensor gathered but for its batch, then each rank keeps its shard (no
+    all-to-all, which ranks sharing a card cannot run). ``pos`` stays as
+    it is, one device scalar. A no-op without a mesh."""
+    def one(t, spec):
+        if not spec.axes:
+            return t
+        whole = tuple("batch" if a == "batch" else None for a in spec.axes)
+        return constrain(constrain(t, whole), spec.axes)
+
+    return tree_map(one, state, axes)
+
+
 def rehome_into(full, state):
     """``state`` (as a family's ``prefill`` returns it) copied into ``full``,
     a fresh ``init_decode_state`` on the same device, the way the
     reference's ``examples/serve_lm.py`` re-homes it: a top-level tensor
     whose shape differs from ``full``'s (a KV cache sized to the prompt)
-    is written into the leading positions of ``full``'s; any other entry
+    is written into the leading positions of ``full``'s (a DTensor cache:
+    into a placed one of ``full``'s shape, `grow_along`; ``full`` may then
+    hold meta tensors, shapes only); any other entry
     (same shape, ``pos``, or a nested per-layer dict, which serve_lm.py
     does not re-home) is taken from ``state``, copied. A prompt longer
     than ``full``'s cache (an SWA ring shorter than the prompt) cannot be
@@ -344,7 +371,10 @@ def rehome_into(full, state):
                 raise ValueError(f"cannot re-home {k!r} of shape {tuple(v.shape)} into a decode "
                                  f"state of shape {tuple(dst.shape)} (a prompt longer than the "
                                  "cache, e.g. an SWA window)")
-            dst[tuple(slice(0, n) for n in v.shape)] = v
+            if isinstance(v, DTensor):
+                full[k] = grow_along(v, dst.shape)
+            else:
+                dst[tuple(slice(0, n) for n in v.shape)] = v
         else:
             full[k] = copy(v)
     return full
@@ -354,9 +384,17 @@ def rehome_state(cfg, state, seq_len: int):
     """``state`` (as `prefill` returns it, its caches sized to the prompt)
     copied into a fresh decode state for ``seq_len`` positions, on the
     same device: room for ``seq_len - pos`` decode steps (`rehome_into`).
-    SWA archs get a ring of ``min(seq_len, window)`` positions."""
+    SWA archs get a ring of ``min(seq_len, window)`` positions. A placed
+    (DTensor) state is re-homed into a placed one."""
     B = state["k"].shape[1]
-    return rehome_into(init_decode_state(cfg, B, seq_len, state["k"].device), state)
+    return rehome_into(init_decode_state(cfg, B, seq_len, state_device(state["k"])), state)
+
+
+def state_device(t):
+    """Where a fresh decode state beside ``t`` is made: ``t``'s device, or
+    the meta device for a DTensor (shapes only: `rehome_into` places the
+    caches itself)."""
+    return torch.device("meta") if isinstance(t, DTensor) else t.device
 
 
 def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_kernel=False):
@@ -370,7 +408,7 @@ def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_ker
     """
     dtype = _dtype(cfg)
     pos = state["pos"]
-    x = embed_tokens(params, cfg, token[:, None])[:, 0]
+    x = constrain(embed_tokens(params, cfg, token[:, None])[:, 0], ("batch", None))
     windows = tfm.layer_windows(cfg)
     thetas = tfm.layer_thetas(cfg)
     # SWA archs use ring-buffer caches sized to the window; attention is
@@ -394,4 +432,4 @@ def prefill(params, cfg, batch, *, constrain=_noop_constrain):
     k, v = aux["kv"]
     S = batch["tokens"].shape[1]
     state = {"k": k, "v": v, "pos": torch.tensor(S, dtype=torch.int32, device=k.device)}
-    return logits, state
+    return logits, place_state(state, state_logical_axes(cfg), constrain)

@@ -15,8 +15,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.lm import (layer_list, layer_spec, rehome_into, remat, to_storage,
-                                  tree_from_numpy)
+from repro_torch.launch.specs import decode_state_axes
+from repro_torch.models.lm import (layer_list, layer_spec, place_state, rehome_into, remat,
+                                  state_device, to_storage, tree_from_numpy)
 from repro_torch.nn import ssm
 from repro_torch.nn.init import embed_init, split_keys
 from repro_torch.nn.layers import embed as embed_lookup
@@ -132,7 +133,7 @@ def rehome_state(cfg, state, seq_len: int):
     """The prefill state in a fresh decode state (every entry has its final
     shape already: ``examples/serve_lm.py`` copies it as it is)."""
     B = state["wkv"].shape[1]
-    return rehome_into(init_decode_state(cfg, B, seq_len, state["wkv"].device), state)
+    return rehome_into(init_decode_state(cfg, B, seq_len, state_device(state["wkv"])), state)
 
 
 def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_kernel=False):
@@ -165,4 +166,4 @@ def prefill(params, cfg, batch, *, constrain=_noop_constrain):
     logits = _logits(params, cfg, x[:, -1:, :], _dtype(cfg))
     T = batch["tokens"].shape[1]
     states["pos"] = torch.tensor(T, dtype=torch.int32, device=x.device)
-    return logits, states
+    return logits, place_state(states, decode_state_axes(cfg), constrain)

@@ -17,8 +17,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.models.lm import (layer_list, layer_spec, rehome_into, remat, to_storage,
-                                  tree_from_numpy)
+from repro_torch.launch.specs import decode_state_axes
+from repro_torch.models.lm import (layer_list, layer_spec, place_state, rehome_into, remat,
+                                  state_device, to_storage, tree_from_numpy)
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.init import embed_init, split_keys
@@ -231,7 +232,7 @@ def rehome_state(cfg, state, seq_len: int):
     """A prefill state in a fresh decode state whose self-attention caches
     hold ``seq_len`` positions (``examples/serve_lm.py``'s re-homing)."""
     B = state["k"].shape[1]
-    return rehome_into(init_decode_state(cfg, B, seq_len, state["k"].device), state)
+    return rehome_into(init_decode_state(cfg, B, seq_len, state_device(state["k"])), state)
 
 
 def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_kernel=False):
@@ -244,7 +245,8 @@ def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_ker
     B = token.shape[0]
     pos = state["pos"]
     S = state["k"].shape[2]
-    x = embed_lookup(params["embed"], token[:, None], dtype=dtype)[:, 0]
+    x = constrain(embed_lookup(params["embed"], token[:, None], dtype=dtype)[:, 0],
+                  ("batch", None))
     # row pos of the reference's sinusoid_table(S) (an index past the end
     # clamps, as dynamic_index_in_dim)
     x = x + sinusoid_rows(torch.clamp(pos, 0, S - 1), cfg.d_model).to(dtype)
@@ -258,14 +260,18 @@ def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_ker
         cache = attn_lib.cache_update(KVCache(state["k"][i], state["v"][i]), k[:, 0], v[:, 0], pos)
         ctx = attn_lib.decode_attention(q[:, 0], cache, cache_len, dtype=dtype,
                                         use_kernel=use_kernel)
-        x = x + attn_lib.attn_out(lp["self_attn"], ctx[:, None], dtype=dtype)[:, 0]
+        ctx = constrain(ctx[:, None], ("batch", None, "heads", None))
+        x = x + constrain(attn_lib.attn_out(lp["self_attn"], ctx, dtype=dtype)[:, 0],
+                          ("batch", None))
         h = layernorm(lp["ln_x"], x[:, None, :], dtype=dtype)[:, 0]
         qx = (h.to(dtype) @ lp["cross_attn"]["wq"].to(dtype)).reshape(B, cfg.n_heads, cfg.head_dim)
         ctx2 = attn_lib.decode_attention(qx, KVCache(state["ck"][i], state["cv"][i]), enc_len,
                                          dtype=dtype)
-        x = x + attn_lib.attn_out(lp["cross_attn"], ctx2[:, None], dtype=dtype)[:, 0]
+        ctx2 = constrain(ctx2[:, None], ("batch", None, "heads", None))
+        x = x + constrain(attn_lib.attn_out(lp["cross_attn"], ctx2, dtype=dtype)[:, 0],
+                          ("batch", None))
         h = layernorm(lp["ln2"], x[:, None, :], dtype=dtype)
-        x = x + mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)[:, 0]
+        x = x + constrain(mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)[:, 0], ("batch", None))
     logits = _logits(params, cfg, x, dtype)
     return logits, {"k": state["k"], "v": state["v"], "ck": state["ck"], "cv": state["cv"],
                     "pos": pos + 1}
@@ -280,4 +286,5 @@ def prefill(params, cfg, batch, *, constrain=_noop_constrain):
     ck, cv = aux["cross"]
     T = batch["tokens"].shape[1]
     pos = torch.tensor(T, dtype=torch.int32, device=k.device)
-    return logits, {"k": k, "v": v, "ck": ck, "cv": cv, "pos": pos}
+    return logits, place_state({"k": k, "v": v, "ck": ck, "cv": cv, "pos": pos},
+                               decode_state_axes(cfg), constrain)

@@ -18,6 +18,14 @@ On a mesh (DTensor q, k, v) `mha` is head-parallel by hand
 their kv dim split (torch 2.11: "Attempted to flatten multiple
 dimensions, with dimension 1 being sharded"), where GSPMD partitions the
 same einsum.
+
+A decode cache on a mesh (DTensor k, v, placed by the decode state's
+axes) may be split along its sequence (``kvseq``): each rank holds the
+positions of its shard. `cache_update` writes the new token on the rank
+that owns its slot, and `decode_attention` attends on each rank's shard
+with every query head (the one token's q is gathered), then merges the
+ranks' rows by their log-sum-exp (`merge_shards`): GSPMD inserts that
+cross-shard max and sum by itself, the port writes it.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.nn.init import ShardSpec, dense_init, split_keys
 from repro_torch.nn.layers import rmsnorm, rmsnorm_params, rmsnorm_specs
@@ -193,27 +201,102 @@ def decode_attention(q1, cache: KVCache, cache_len, *, dtype=torch.bfloat16, win
     window: int; >0 restricts attention to the trailing window. In the
     port it is always a Python int, so the kernel path runs under every
     layer pattern.
-    Returns (B, H, hd).
+    Returns (B, H, hd). On a mesh see `_decode_on_mesh`.
     """
-    B, H, hd = q1.shape
-    KV = cache.k.shape[2]
-    S = cache.k.shape[1]
-    G = H // KV
+    if isinstance(cache.k, DTensor):
+        return _decode_on_mesh(q1, cache, cache_len, dtype=dtype, window=window,
+                               use_kernel=use_kernel)
     if use_kernel:
         from repro_torch.kernels import ops as kernel_ops
 
         return kernel_ops.decode_attn(q1, cache.k, cache.v, cache_len, window=int(window))
-    qg = q1.reshape(B, KV, G, hd)
-    logits = torch.einsum("bkgh,bskh->bkgs", qg.to(dtype), cache.k.to(dtype))
+    return _plain_attention(q1, cache.k, cache.v, cache_len, dtype=dtype, window=window)
+
+
+def _plain_attention(q1, k, v, cache_len, *, dtype, window, offset=None):
+    """The plain path's attention, (B, H, hd) in ``dtype``. With ``offset``
+    (shard mode: k, v hold the cache's positions from ``offset`` on, and
+    ``cache_len`` is the whole cache's) it returns (out, lse): a row with
+    no live position is 0, and lse (B, H) f32 is each row's log-sum-exp
+    of its live logits (-inf with none)."""
+    B, H, hd = q1.shape
+    S, KV = k.shape[1], k.shape[2]
+    qg = q1.reshape(B, KV, H // KV, hd)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg.to(dtype), k.to(dtype))
     logits = logits.to(torch.float32) * _inv_sqrt(hd)
     pos = torch.arange(S, dtype=torch.int32, device=q1.device)
+    if offset:
+        pos = pos + offset
     valid = pos < cache_len
     if window > 0:
         valid = valid & (pos >= cache_len - window)
-    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(dtype)
-    ctx = torch.einsum("bkgs,bskh->bkgh", probs, cache.v.to(dtype))
-    return ctx.reshape(B, H, hd)
+    probs = torch.softmax(torch.where(valid[None, None, None, :], logits, NEG_INF), dim=-1)
+    ctx = torch.einsum("bkgs,bskh->bkgh", probs.to(dtype), v.to(dtype)).reshape(B, H, hd)
+    if offset is None:
+        return ctx
+    lse = torch.logsumexp(torch.where(valid, logits, -torch.inf), dim=-1)
+    return torch.where(valid.any(), ctx, 0.0), lse.reshape(B, H)
+
+
+def merge_shards(out, lse, mesh, dims):
+    """The attention of a whole cache from its shards' (``out`` (B, H, hd),
+    ``lse`` (B, H), both f32, this rank's): the ranks of mesh dims ``dims``
+    (those that split the cache's sequence, major to minor) gather every
+    shard's rows, and each weighs shard r by e^(lse_r - M), M the largest
+    lse: out = sum_r e^(lse_r - M) out_r / sum_r e^(lse_r - M), in f32, in
+    shard order, the same on every rank. Rows with no live position in
+    any shard are 0."""
+    packed = torch.cat([out, lse[..., None]], dim=-1)[None]  # (1, B, H, hd + 1)
+    placements = [Shard(0) if m in dims else Replicate() for m in range(mesh.ndim)]
+    gathered = DTensor.from_local(packed, mesh, placements, run_check=False)
+    gathered = gathered.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    return merge_rows(gathered[..., :-1], gathered[..., -1])
+
+
+def merge_rows(outs, lses):
+    """`merge_shards`' arithmetic on the shards' rows stacked in order:
+    ``outs`` (n, B, H, hd), ``lses`` (n, B, H), f32."""
+    top = lses.max(dim=0).values
+    w = torch.exp(lses - torch.where(torch.isfinite(top), top, 0.0))  # 0 where -inf
+    return (w[..., None] * outs).sum(0) / torch.clamp(w.sum(0), min=1e-30)[..., None]
+
+
+def _batch_rows(placements):
+    """Placements of a per-token tensor (B, ...) beside a cache placed by
+    ``placements``: its batch split as the cache's, whole elsewhere."""
+    return [p if p.is_shard(0) else Replicate() for p in placements]
+
+
+def _decode_on_mesh(q1, cache, cache_len, *, dtype, window, use_kernel):
+    """`decode_attention` against a DTensor cache (B, S, KV, hd): every
+    rank takes the one token's q with all its heads (gathered over the
+    mesh dims that split them) and its own rows of the batch, attends on
+    its shard of the cache (K4 with ``use_kernel``, at the shard's offset)
+    and, where mesh dims split the sequence, merges the ranks' rows
+    (`merge_shards`). Returns the context as a DTensor of the batch rows,
+    whole on the other mesh dims, in ``dtype``."""
+    from repro_torch.runtime.sharding import local, place, shard_offsets, split_over
+
+    mesh = cache.k.device_mesh
+    rows = _batch_rows(cache.k.placements)
+    q_l = place(q1, mesh, rows).to_local()
+    k_l, v_l, n = cache.k.to_local(), cache.v.to_local(), local(cache_len)
+    seq = split_over(cache.k, 1)
+    if not seq:
+        out = decode_attention(q_l, KVCache(k_l, v_l), n, dtype=dtype, window=window,
+                               use_kernel=use_kernel)
+    else:
+        offset = shard_offsets(cache.k, 1)[0]
+        if use_kernel:
+            from repro_torch.kernels import ops as kernel_ops
+
+            out, lse = kernel_ops.decode_attn(q_l, k_l, v_l, n, window=int(window), offset=offset,
+                                              return_lse=True)
+        else:
+            out, lse = _plain_attention(q_l, k_l, v_l, n, dtype=dtype, window=window,
+                                        offset=offset)
+        out = merge_shards(out.float(), lse, mesh, seq).to(dtype)
+    return DTensor.from_local(out, mesh, rows, run_check=False)
 
 
 def cache_update(cache: KVCache, k1, v1, index):
@@ -221,10 +304,36 @@ def cache_update(cache: KVCache, k1, v1, index):
 
     k1, v1: (B, KV, hd). index: scalar int32 tensor. As
     ``dynamic_update_slice`` in the reference, an index past the end is
-    clamped to the last slot.
+    clamped to the last slot. A DTensor cache split along its sequence is
+    written on the rank that owns the slot only (`_update_on_mesh`).
     """
+    if isinstance(cache.k, DTensor):
+        return _update_on_mesh(cache, k1, v1, index)
     S = cache.k.shape[1]
     idx = torch.as_tensor(index, device=cache.k.device).clamp(0, S - 1).reshape(1).long()
     cache.k.index_copy_(1, idx, k1[:, None].to(cache.k.dtype))
     cache.v.index_copy_(1, idx, v1[:, None].to(cache.v.dtype))
+    return cache
+
+
+def _update_on_mesh(cache: KVCache, k1, v1, index):
+    """`cache_update` of a DTensor cache: the token's k/v gathered whole
+    (all kv heads) for this rank's batch rows; the slot, clamped to the
+    whole cache, is written where this rank's shard holds it: at
+    ``index - offset`` where that lies in ``[0, S_local)``, and nowhere on
+    the other ranks (their slots are rewritten with what they hold, with
+    no read of the index on the host)."""
+    from repro_torch.runtime.sharding import local, place, shard_offsets
+
+    mesh = cache.k.device_mesh
+    rows = _batch_rows(cache.k.placements)
+    offset, n = shard_offsets(cache.k, 1)
+    idx = torch.as_tensor(local(index), device=cache.k.device).clamp(0, cache.k.shape[1] - 1)
+    at = idx - offset
+    mine = (at >= 0) & (at < n)
+    at = at.clamp(0, n - 1).reshape(1).long()
+    for c, t in ((cache.k, k1), (cache.v, v1)):
+        c = c.to_local()
+        new = place(t, mesh, rows).to_local()[:, None].to(c.dtype)
+        c.index_copy_(1, at, torch.where(mine, new, c.index_select(1, at)))
     return cache

@@ -8,12 +8,16 @@ beside each ``*_params`` initialiser (``*_specs``, with the reference's
 axes), and every family's ``param_specs(cfg)`` assembles the
 tree of a whole model. Tensors are made on the generator's device, so a
 CUDA generator initialises a full-width model on the card without a trip
-through host memory.
+through host memory. Under `shapes_only` the random draws give tensors on
+the ``meta`` device instead (shapes and dtypes, no storage: the
+counterpart of tracing an init under ``jax.eval_shape``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -35,9 +39,27 @@ class ShardSpec:
         return iter(self.axes)
 
 
+_draws = threading.local()
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Within it, this thread's initialisers draw nothing: each random
+    tensor is a ``meta`` tensor of its shape and dtype, and `split_keys`
+    hands the generator on as it is."""
+    before = getattr(_draws, "meta", False)
+    _draws.meta = True
+    try:
+        yield
+    finally:
+        _draws.meta = before
+
+
 def _truncated_normal(generator: torch.Generator, shape, stddev: float, dtype) -> torch.Tensor:
     # 2-sigma truncation like flax's default initializers, drawn in f32
     # and then scaled, as the reference does
+    if getattr(_draws, "meta", False):
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     unscaled = torch.empty(tuple(shape), dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(unscaled, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (unscaled * stddev).to(dtype)
@@ -66,5 +88,7 @@ def scalar_init(value: float, shape: Sequence[int], *, dtype=torch.float32,
 def split_keys(generator: torch.Generator, n: int) -> List[torch.Generator]:
     """``n`` independent generators on ``generator``'s device, seeded from
     it (the counterpart of ``jax.random.split``)."""
+    if getattr(_draws, "meta", False):
+        return [generator] * n
     seeds = torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
     return [torch.Generator(device=generator.device).manual_seed(s) for s in seeds]

@@ -190,15 +190,18 @@ def block_step(params, x_t, cache: KVCache, pos, *, cfg, window: int, theta: flo
         q[:, 0], cache, cache_len, dtype=dtype, window=0 if ring else window,
         use_kernel=use_kernel,
     )
-    a = attn_lib.attn_out(params["attn"], ctx[:, None], dtype=dtype)[:, 0]
+    # on a mesh the context (whole heads on every rank after a kvseq merge)
+    # goes to wo split by its heads, and each partial sum is all-reduced
+    # before it joins the residual
+    ctx = constrain(ctx[:, None], ("batch", None, "heads", None))
+    a = constrain(attn_lib.attn_out(params["attn"], ctx, dtype=dtype)[:, 0], ("batch", None))
     if cfg.post_attn_norm:
         a = norm_apply(cfg, params["ln1_post"], a, dtype)
     x_t = x_t + a
 
     h = norm_apply(cfg, params["ln2"], x_t[:, None, :], dtype)
     m, _ = _ffn(cfg, params, h, dtype, min(cfg.moe_group_size, B), constrain)
-    x_t = x_t + m[:, 0]
-    return x_t, cache
+    return x_t + constrain(m[:, 0], ("batch", None)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -152,14 +152,7 @@ def place(x, mesh: DeviceMesh, placements) -> DTensor:
     (``Replicate()`` on them), as does any dim on a mesh dim of one rank:
     DTensor refuses to reshape a dim split unevenly, or "split" over one
     rank (the MoE's single token group, G = 1), where GSPMD pads."""
-    placements = tuple(placements)
-    ways = {}
-    for m, p in enumerate(placements):
-        if p.is_shard():
-            ways[p.dim] = ways.get(p.dim, 1) * mesh.size(m)
-    placements = tuple(
-        Replicate() if p.is_shard() and (mesh.size(m) == 1 or x.shape[p.dim] % ways[p.dim]) else p
-        for m, p in enumerate(placements))
+    placements = even_placements(x.shape, mesh, tuple(placements))
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
     return x.redistribute(mesh, placements)
@@ -269,6 +262,79 @@ def split_over(x: DTensor, dim: int):
     """The mesh dims that split ``x`` along ``dim`` (of more than 1 rank)."""
     return [m for m, p in enumerate(x.placements)
             if p == Shard(dim) and x.device_mesh.size(m) > 1]
+
+
+def local(x):
+    """This rank's tensor: a DTensor's local shard, any other tensor as it
+    is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def even_placements(shape, mesh: DeviceMesh, placements) -> Tuple[Placement, ...]:
+    """``placements`` with `place`'s rule applied: a dim that its mesh dims
+    do not split evenly, or a mesh dim of one rank, stays whole."""
+    ways = {}
+    for m, p in enumerate(placements):
+        if p.is_shard():
+            ways[p.dim] = ways.get(p.dim, 1) * mesh.size(m)
+    return tuple(Replicate() if p.is_shard() and (mesh.size(m) == 1 or shape[p.dim] % ways[p.dim])
+                 else p for m, p in enumerate(placements))
+
+
+def grow_along(src: DTensor, shape) -> DTensor:
+    """A DTensor of ``shape`` placed as ``src`` is (zeros; `place`'s rule
+    for dims that no longer split evenly), holding ``src``'s values in its
+    leading positions along the one dim where the shapes differ: a prompt's
+    KV cache re-homed into a longer decode state. Each rank writes its own
+    positions of the grown dim: ``src`` is gathered over the mesh dims
+    that split that dim one index of its leading dim (a layer) at a time,
+    so no rank ever holds the whole of ``src``."""
+    from torch.distributed.tensor import zeros
+
+    grown = [d for d, (a, b) in enumerate(zip(src.shape, shape)) if a != b]
+    if len(grown) != 1 or src.ndim != len(shape):
+        raise ValueError(f"cannot grow {tuple(src.shape)} into {tuple(shape)} along one dim")
+    d = grown[0]
+    mesh = src.device_mesh
+    placements = even_placements(shape, mesh, src.placements)
+    dst = zeros(tuple(shape), dtype=src.dtype, device_mesh=mesh, placements=placements)
+    off, n = shard_offsets(dst, d)
+    lo, hi = off, min(off + n, src.shape[d])
+    whole = [Replicate() if p.is_shard(d) else p for p in placements]
+    steps = range(src.shape[0]) if d != 0 and not any(p.is_shard(0) for p in placements) else [None]
+    out = dst.to_local()
+    for i in steps:
+        part = src if i is None else src[i:i + 1]
+        got = part.redistribute(mesh, whole).to_local()
+        if hi > lo:
+            row = out if i is None else out[i:i + 1]
+            row.narrow(d, 0, hi - lo).copy_(got.narrow(d, lo, hi - lo))
+    return dst
+
+
+def argmax_last(logits) -> torch.Tensor:
+    """``torch.argmax(logits, -1)`` as int32, ties to the first maximum (as
+    ``jnp.argmax``); the same plain tensor on every rank. Logits whose last
+    (vocab) dim is split over mesh dims are not gathered: each rank takes
+    its shard's maximum and its global index, the ranks gather those
+    (every mesh dim that splits a dim of the logits), and the first of the
+    largest wins, which is the lowest index since shards follow the vocab
+    in order."""
+    if not isinstance(logits, DTensor):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    shard = logits.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                       for p in logits.placements])
+    off, _ = shard_offsets(shard, last)
+    part = shard.to_local()
+    at = torch.argmax(part, dim=-1, keepdim=True)  # the shard's first maximum
+    best = part.gather(-1, at)
+    # (..., 1, 2): the shard's dim `last` becomes one entry of the gathered one
+    cand = torch.cat([best.double(), (at + off).double()], dim=-1)[..., None, :]
+    cand = DTensor.from_local(cand, mesh, shard.placements, run_check=False).full_tensor()
+    top = cand[..., 0].max(dim=-1, keepdim=True).values
+    first = torch.argmax((cand[..., 0] == top).to(torch.int8), dim=-1, keepdim=True)
+    return cand[..., 1].gather(-1, first)[..., 0].to(torch.int32)
 
 
 def named(mesh: DeviceMesh, *axes):

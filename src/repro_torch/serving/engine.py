@@ -15,6 +15,28 @@ one copy of each step's token into the output. The graph reads the
 weights where they lie, so an in-place update of them is seen at the next
 replay; an engine whose ``params`` were rebound to other tensors captures
 its step again. On the CPU the steps run eagerly in a Python loop.
+
+**On a mesh** (``mesh=`` of more than one rank, every rank running the
+same program, as the reference jits its step under a mesh): the params
+and the state are placed by the rule table ``rules_for(cfg, rules_mode)``
+(``"decode"``, or ``"decode_long"``: batch 1, the caches' sequence over
+every mesh axis), and each step runs ``decode_step(...,
+constrain=make_constrain(mesh, rules))``: every attention layer attends
+on the rank's ``kvseq`` shard of its cache (K4 with ``use_kernel``) and
+the ranks merge by log-sum-exp. The greedy token is taken from the
+vocab-sharded logits without gathering them (`argmax_last`), the same on
+every rank. A one-rank mesh changes nothing: plain tensors and the step
+graph, bit for bit the engine without a mesh.
+
+**Modes** (`decode_mode`, reported as ``engine.mode`` and
+``engine.mode_reason``): ``"graph"`` on one card; ``"eager"`` on the CPU
+and on a mesh of more than one rank, where each rank runs its steps in a
+Python loop. Ranks that share a card exchange through each other's
+buffers with a host barrier a collective (gloo,
+`repro_torch.launch.mesh.exchange_through_peer_buffers`), which a CUDA
+graph cannot hold; capturing the sharded step under NCCL, a card a rank,
+is not written yet. An eager pass warms up with `EAGER_WARMUP_STEPS`
+steps, since there is nothing to capture.
 """
 from __future__ import annotations
 
@@ -24,9 +46,13 @@ import time
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.runtime.sharding import argmax_last, make_constrain, rules_for, shard_tree
 from repro_torch.serving.graphs import CAPTURE_LOCK, CapturedGraph, ParamsBinding
+
+EAGER_WARMUP_STEPS = 1
 
 
 @dataclasses.dataclass
@@ -36,19 +62,41 @@ class StatefulDecoder:
     init_state: Callable[..., Any]
     step: Callable[..., Any]
     name: str = "decoder"
+    # the port's own: the model whose ShardSpecs place the params and the
+    # state on a mesh (its step then takes ``constrain=``)
+    model: Any = None
 
 
 def lm_decoder(model, **step_kw) -> StatefulDecoder:
     """``step_kw`` (e.g. ``use_kernel=True``) is forwarded to every
     ``model.decode_step`` call, as the reference's ``Model.decode_step``
-    takes it."""
+    takes it; so is ``constrain`` on a mesh."""
 
-    def step(params, state, token):
-        return model.decode_step(params, state, token, **step_kw)
+    def step(params, state, token, constrain=None):
+        return model.decode_step(params, state, token, constrain=constrain, **step_kw)
 
     return StatefulDecoder(
-        init_state=model.init_decode_state, step=step, name=f"lm:{model.cfg.name}"
+        init_state=model.init_decode_state, step=step, name=f"lm:{model.cfg.name}", model=model
     )
+
+
+def decode_mode(device: torch.device, mesh=None):
+    """("graph" or "eager", why) for decoding on ``device`` over ``mesh``:
+    one CUDA graph of a step on one card; eager steps on the CPU and on a
+    mesh of more than one rank (see the module docstring)."""
+    if device.type != "cuda":
+        return "eager", f"no CUDA graph on {device.type}"
+    if mesh is not None and mesh.size() > 1:
+        import torch.distributed as dist
+
+        backend = str(dist.get_backend(mesh.get_group(0)))
+        if "nccl" not in backend:
+            return "eager", (f"{mesh.size()} ranks sharing a card (backend {backend}): the "
+                             "exchange through peer buffers waits on a host barrier, which no "
+                             "CUDA graph holds")
+        return "eager", (f"{mesh.size()} ranks, a card each (backend {backend}): capturing the "
+                         "sharded step is not written yet")
+    return "graph", "one card: each step a replay of its CUDA graph"
 
 
 def copy_state(state):
@@ -123,14 +171,26 @@ def _program_key(state, token):
 class DecodeEngine:
     """Greedy batched decoding."""
 
-    def __init__(self, decoder: StatefulDecoder, params, *, mesh=None, donate: bool = False):
-        # ``mesh`` and ``donate`` are accepted for the reference's signature
-        # and ignored: the port decodes on one device (the LM half of the
-        # mesh is ROADMAP.md Queue 1 item 12a-LM), and it never consumes the caller's
-        # state, since every pass decodes from a copy
+    def __init__(self, decoder: StatefulDecoder, params, *, mesh=None, donate: bool = False,
+                 rules_mode: str = "decode"):
+        # ``donate`` is accepted for the reference's signature and ignored:
+        # the port never consumes the caller's state, since every pass
+        # decodes from a copy. ``rules_mode``, the port's own, picks the
+        # rule table on a mesh: "decode" or "decode_long"
         self.decoder = decoder
-        self.params = params
         self.mesh = mesh
+        self.sharded = mesh is not None and mesh.size() > 1
+        self._step_kw = {}
+        if self.sharded:
+            model = decoder.model
+            if model is None:
+                raise ValueError("a decoder on a mesh needs its model (lm_decoder sets it)")
+            self.rules = rules_for(model.cfg, rules_mode)
+            self._step_kw["constrain"] = make_constrain(mesh, self.rules)
+            if not any(isinstance(t, DTensor) for t in tree_leaves(params)):
+                params = shard_tree(params, model.param_specs(), self.rules, mesh)
+        self.params = params
+        self.mode, self.mode_reason = decode_mode(next(tree_leaves(params)).device, mesh)
         self._lock = threading.Lock()
         self._graphs = {}  # guarded-by: _lock
 
@@ -145,13 +205,26 @@ class DecodeEngine:
                 graph = self._graphs[key] = StepGraph(self.decoder, self.params, state, token)
             return graph
 
+    def _place(self, state):
+        """``state`` placed on the engine's mesh by the family's decode
+        axes (`launch.specs.decode_state_axes`): a plain state, the same
+        on every rank, keeps each rank's shard; a placed one (a sharded
+        prefill's, re-homed) is taken as it is, as is any state without a
+        mesh."""
+        if not self.sharded or any(isinstance(t, DTensor) for t in tree_leaves(state)):
+            return state
+        from repro_torch.launch.specs import decode_state_axes
+        from repro_torch.models.lm import place_state
+
+        cfg = self.decoder.model.cfg
+        return place_state(state, decode_state_axes(cfg), self._step_kw["constrain"])
+
     def _multi_step(self, state, token, n_steps: int):
-        """Eager decoding (the CPU path): ``state`` is decoded in place."""
+        """Eager decoding: ``state`` is decoded in place."""
         tokens = []
         for _ in range(n_steps):
-            logits, state = self.decoder.step(self.params, state, token)
-            # ties go to the first maximum, as jnp.argmax
-            token = torch.argmax(logits, dim=-1).to(torch.int32)
+            logits, state = self.decoder.step(self.params, state, token, **self._step_kw)
+            token = argmax_last(logits)  # ties to the first maximum, as jnp.argmax
             tokens.append(token)
         return torch.stack(tokens), state
 
@@ -160,14 +233,20 @@ class DecodeEngine:
         """Returns (tokens (n_steps, B) int32, final state, tokens/sec):
         a warm-up pass, then a timed pass from the same initial state. On
         the card the warm-up pass captures the step (at the first call for
-        these shapes) and replays it; the timed pass only replays."""
+        these shapes) and replays it; the timed pass only replays. Eager
+        (``self.mode``), the warm-up is `EAGER_WARMUP_STEPS` steps. On a
+        mesh every rank calls it with the same state and token; the tokens
+        are the same plain tensor on every rank, the state stays placed."""
         device = first_token.device
         B = first_token.shape[0]
-        if device.type != "cuda":
-            self._multi_step(copy_state(state), first_token, n_steps)  # warm-up
+        if self.mode == "eager":
+            state = self._place(state)
+            self._multi_step(copy_state(state), first_token, min(n_steps, EAGER_WARMUP_STEPS))
             start = copy_state(state)  # copied outside the timed pass
+            _sync(device)
             t0 = time.perf_counter()
             tokens, state = self._multi_step(start, first_token, n_steps)
+            _sync(device)
             dt = time.perf_counter() - t0
             return tokens, state, (n_steps * B) / dt
         graph = self.step_graph(state, first_token)

@@ -173,6 +173,87 @@ def test_plain_decode_attn_matches_reference(ref_ops, B, H, KV, hd, S, cache_len
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol)
 
 
+# ------------------------------------------------- K4's shard mode (kvseq)
+
+# (B, H, KV, hd, S, window, cache_len, shard boundaries): gemma3-4b's local
+# layers at 2112 positions over two ranks (cache_len 2100: rank 0 reads
+# nothing of the window of 1024), a window across the boundary, a global
+# layer, a cache not yet past rank 1's offset, and four shards (the first
+# outside the window, the last past the cache)
+_SHARD_CASES = [
+    (2, 8, 4, 256, 2112, 1024, 2100, (0, 1056)),
+    (2, 8, 4, 256, 2112, 1024, 1500, (0, 1056)),
+    (2, 8, 4, 256, 2112, 0, 2100, (0, 1056)),
+    (3, 8, 2, 64, 96, 0, 40, (0, 48)),
+    (1, 4, 4, 32, 80, 32, 70, (0, 20, 40, 60)),
+]
+
+
+def _unsharded_plain(q, k, v, cache_len, window):
+    """decode_attn_ref as it stood before its shard mode: -1e30 fill, then
+    the softmax over every position."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd).to(torch.float32)
+    logits = torch.einsum("bkgh,bskh->bkgs", qg, k.to(torch.float32))
+    logits = logits / float(np.sqrt(np.float32(hd)))
+    pos = torch.arange(S, dtype=torch.int32)
+    valid = pos < cache_len
+    if window > 0:
+        valid = valid & (pos >= cache_len - window)
+    probs = torch.softmax(torch.where(valid, logits, -1e30), dim=-1)
+    return torch.einsum("bkgs,bskh->bkgh", probs, v.to(torch.float32)).reshape(B, H, hd)
+
+
+def _shards(k, v, bounds):
+    S = k.shape[1]
+    ends = list(bounds[1:]) + [S]
+    return [(lo, k[:, lo:hi], v[:, lo:hi]) for lo, hi in zip(bounds, ends)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,hd,S,window,cache_len,bounds", _SHARD_CASES)
+def test_plain_decode_attn_shards_merge_to_the_whole(B, H, KV, hd, S, window, cache_len, bounds,
+                                                    dtype):
+    """Each shard's (out, lse) at its offset, merged by log-sum-exp
+    (`nn.attention.merge_rows`), is the unsharded call within 1e-5 (f32
+    sums in another order); a shard with no live position gives 0 and
+    -inf."""
+    from repro_torch.nn.attention import merge_rows
+
+    q, k, v = _decode_inputs(B, H, KV, hd, S, seed=S + window, dtype=getattr(torch, dtype))
+    cl = torch.tensor(cache_len, dtype=torch.int32)
+    outs, lses = [], []
+    for lo, ks, vs in _shards(k, v, bounds):
+        out, lse = ops.decode_attn(q, ks, vs, cl, window=window, offset=lo, return_lse=True)
+        assert out.dtype == torch.float32 and lse.shape == (B, H)
+        live = min(cache_len, lo + ks.shape[1]) - max(cache_len - window if window else 0, lo)
+        if live <= 0:
+            assert torch.equal(out, torch.zeros_like(out))
+            assert bool(torch.isneginf(lse).all())
+        outs.append(out)
+        lses.append(lse)
+    whole = ref.decode_attn_ref(q, k, v, cl, window=window)
+    np.testing.assert_allclose(merge_rows(torch.stack(outs), torch.stack(lses)).numpy(),
+                               whole.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S,window,cache_len,bounds", _SHARD_CASES)
+def test_plain_decode_attn_unsharded_is_unchanged(B, H, KV, hd, S, window, cache_len, bounds):
+    """The unsharded call gives what it gave before the shard mode, bit for
+    bit, as does the shard mode over the whole cache (offset 0); an empty
+    range now gives 0 where the old formula averaged every v row."""
+    q, k, v = _decode_inputs(B, H, KV, hd, S, seed=S + window)
+    cl = torch.tensor(cache_len, dtype=torch.int32)
+    want = _unsharded_plain(q, k, v, cl, window)
+    assert torch.equal(ops.decode_attn(q, k, v, cl, window=window), want)
+    out, lse = ops.decode_attn(q, k, v, cl, window=window, offset=0, return_lse=True)
+    assert torch.equal(out, want) and bool(torch.isfinite(lse).all())
+    for empty in (0, -2):
+        got = ops.decode_attn(q, k, v, torch.tensor(empty, dtype=torch.int32), window=window)
+        assert torch.equal(got, torch.zeros_like(got))
+
+
 # ------------------------------------------------- K4's plan and arithmetic
 
 # every family's K4 shape at LM_BATCH = 8 (chip_smoke.py): q (B, H, hd),
@@ -655,3 +736,42 @@ def test_decode_attn_kernel_without_live_positions_gives_zeros(cuda, B, H, KV, h
         got = ops.decode_attn(q, k, v, torch.tensor(cache_len, dtype=torch.int32, device=cuda))
         torch.cuda.synchronize()
         assert torch.equal(got, torch.zeros_like(got)), cache_len
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,H,KV,hd,S,window,cache_len,bounds", _SHARD_CASES)
+def test_decode_attn_kernel_shard_mode_matches_plain(cuda, dtype, B, H, KV, hd, S, window,
+                                                     cache_len, bounds):
+    """K4 at each shard's offset, returning (out, lse) in f32, against its
+    plain version (f32: 1e-5, sums in another order; bf16: 1e-4, P also
+    split into bf16 hi + lo, an error under 2**-16 of P times |v|), an
+    empty shard's 0 and -inf exactly, and the shards merged against the
+    unsharded K4 (the merge in f32; the bf16 rounding of the unsharded
+    output)."""
+    from repro_torch.nn.attention import merge_rows
+
+    dt = getattr(torch, dtype)
+    q, k, v = _decode_inputs(B, H, KV, hd, S, seed=S + window, dtype=dt, device=cuda)
+    cl = torch.tensor(cache_len, dtype=torch.int32, device=cuda)
+    outs, lses = [], []
+    for lo, ks, vs in _shards(k, v, bounds):
+        ks, vs = ks.contiguous(), vs.contiguous()
+        before = ops.launches["decode_attn"]
+        out, lse = ops.decode_attn(q, ks, vs, cl, window=window, offset=lo, return_lse=True)
+        torch.cuda.synchronize()
+        assert ops.launches["decode_attn"] == before + 1 and out.dtype == torch.float32
+        w_out, w_lse = ref.decode_attn_ref(q, ks, vs, cl, window=window, offset=lo,
+                                           return_lse=True)
+        tol = 1e-4 if dtype == "bfloat16" else 1e-5
+        torch.testing.assert_close(out, w_out, rtol=tol, atol=tol)
+        torch.testing.assert_close(lse, w_lse, rtol=tol, atol=tol)
+        live = min(cache_len, lo + ks.shape[1]) - max(cache_len - window if window else 0, lo)
+        if live <= 0:
+            assert bool((out == 0).all()) and bool(torch.isneginf(lse).all())
+        outs.append(out)
+        lses.append(lse)
+    merged = merge_rows(torch.stack(outs), torch.stack(lses)).to(dt)
+    whole = ops.decode_attn(q, k, v, cl, window=window)
+    rtol, atol = (2 ** -7, 1e-4) if dtype == "bfloat16" else (1e-5, 1e-5)
+    torch.testing.assert_close(merged.float(), whole.float(), rtol=rtol, atol=atol)

@@ -145,6 +145,20 @@ def _counted_step(mesh, metrics=False):
     return dict(counter.calls)
 
 
+def _plain(tree):
+    """``tree`` with every tensor as a numpy array: what a rank puts on a
+    queue. A tensor would travel as a handle to its storage, which the
+    parent can open only while the sending rank is alive, and a rank
+    exits as soon as it has put its results."""
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_plain(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
 def _rank(rank, world, shape, init, inputs, ckpt, queue):
     """One rank's program in a world of ``shape``. Rank 0 (the test
     process) returns its results; the others put theirs on ``queue``."""
@@ -198,7 +212,7 @@ def _rank(rank, world, shape, init, inputs, ckpt, queue):
         dist.destroy_process_group()
     if queue is None:
         return out
-    queue.put((rank, out))
+    queue.put((rank, _plain(out)))
 
 
 @pytest.fixture(scope="module")
@@ -374,7 +388,7 @@ def _staged_rank(rank, init, root, queue):
         mesh_mod.close_peer_buffers()
     finally:
         dist.destroy_process_group()
-    queue.put((rank, out))
+    queue.put((rank, _plain(out)))
 
 
 def test_the_all_gather_staged_through_host_gives_the_same_step(tmp_path):
@@ -416,9 +430,9 @@ def test_the_all_gather_staged_through_host_gives_the_same_step(tmp_path):
     for rank, ((calls, metrics), (s_calls, s_metrics), moved, grown, summed, left) in got.items():
         assert calls == s_calls and metrics == s_metrics, rank
         assert moved["all_gather_into_tensor"] > 0 and moved["reduce_scatter_tensor"] > 0, rank
-        assert torch.equal(grown[0], torch.cat([x[:32], 2 * x[32:64]]))
-        assert torch.equal(grown[1], torch.cat([x[:2048], 2 * x[2048:]]))
-        assert torch.equal(summed, 3 * x[2048 * rank:2048 * (rank + 1)])
+        assert np.array_equal(grown[0], torch.cat([x[:32], 2 * x[32:64]]).numpy())
+        assert np.array_equal(grown[1], torch.cat([x[:2048], 2 * x[2048:]]).numpy())
+        assert np.array_equal(summed, (3 * x[2048 * rank:2048 * (rank + 1)]).numpy())
         assert left == [], rank
 
 

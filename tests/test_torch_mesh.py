@@ -75,6 +75,20 @@ def _grads(pod, data):
             "b": rng.normal(size=(3,)).astype(np.float32) * 1e-3}
 
 
+def _plain(tree):
+    """``tree`` with every tensor as a numpy array: what a rank puts on a
+    queue. A tensor would travel as a handle to its storage, which the
+    parent can open only while the sending rank is alive, and a rank
+    exits as soon as it has put its results."""
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_plain(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
 def _spmd(rank, init, ckpt_dir, queue):
     """One rank of the world: placements, restore and cross_pod_mean.
     Rank 0 returns its results; the others put theirs on ``queue``."""
@@ -109,7 +123,7 @@ def _spmd(rank, init, ckpt_dir, queue):
         dist.destroy_process_group()
     if queue is None:
         return out
-    queue.put((rank, out))
+    queue.put((rank, _plain(out)))
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,7 @@ CTX = 16
 STYLES = ["mlb_stream", "sim_loop", "mlb_branchy"]
 SIZES = [3000, 2000, 2600]  # ragged on purpose
 LANES = [3, 2, 5]  # 10 live lanes in a bucket of 16
+BATCH_WINDOW_MS = 1000.0  # the drain loop's batch window in test_background_session_equals_sync
 # narrow widths: the kernels' widths are not on this path (use_kernel=False)
 KINDS = {
     "c1": dict(kind="c1", ctx_len=CTX, channels=(16, 16, 16), hidden=32),
@@ -138,11 +139,17 @@ def test_predicted_sweep_with_sim_configs_equals_reference(traces, artifacts, ki
 
 def test_background_session_equals_sync(traces, artifacts):
     """The session on the service's drain loop gives the synchronous
-    session's totals bit for bit, all three jobs in one batch."""
+    session's totals bit for bit, all three jobs in one batch. The loop
+    opens a batch window of ``max_wait_ms`` at the first submit; the
+    default 5 ms can close before the third submit on a loaded host, so
+    the session rides a service whose window is wide enough to hold all
+    three."""
     path = artifacts["c1"]
     art = PredictorArtifact.load(path, device="cpu")
     sync = SimNet(art, device="cpu", cache=CompileCache()).simulate_many(traces, n_lanes=LANES)
-    with SimNet(art, device="cpu", cache=CompileCache(), background=True) as sn:
+    cache = CompileCache()
+    service = SimServe(chunk=1024, max_wait_ms=BATCH_WINDOW_MS, cache=cache, device="cpu")
+    with service, SimNet(art, device="cpu", cache=cache, service=service, background=True) as sn:
         assert sn.service.running
         got = sn.simulate_many(traces, n_lanes=LANES)
         st = sn.stats()
