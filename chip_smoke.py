@@ -103,6 +103,22 @@ launches each makes:
   decode. Phase [3b] holds K4's shard mode (an offset, the log-sum-exp
   beside an f32 output, an empty shard) against its plain version and
   the two shards merged against the unsharded K4.
+- the dry run and the roofline (phase [17]): (a) a child process traces
+  four cells of ``python -m repro_torch.launch.dryrun`` at the reference's
+  world (a ``"fake"`` process group of 256 or 512 ranks, fake tensors on
+  the card's device type): tinyllama-1.1b × train_4k, gemma3-4b ×
+  decode_32k, mixtral-8x7b × long_500k on the multi-pod mesh and
+  simnet-c3 × simulate_64k, every status ok and the SimNet cell with no
+  collective; (b) ``runtime.opcount`` on the card: one SimNet c3 step at
+  [5]'s shape and one gemma3-4b decode step at [7]'s, each run with its
+  kernel (K1, K4: launched once) and plain, the counts equal (a region
+  counts the same formula whichever runs inside it, so K4's bytes are
+  also held against an independent count: the plain attention at [7]'s
+  shape on a full cache, counted op by op with no region, moves K and V
+  three times, 2.9-3.2 times the region's bytes, at equal FLOPs); each
+  step's bound (``runtime.roofline`` on the H100's figures, the f32 peak
+  for SimNet, the bf16 one for gemma) over [5]'s and [7]'s measured ms a
+  step is its roofline share, at most 1.05.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -115,6 +131,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
@@ -260,6 +277,13 @@ SHARD_LONG_SEQ, SHARD_LONG_POS, SHARD_LONG_STEPS = 32768, 32000, 16
 # step ~0.95 s, host-bound); the follower's wait at the rendezvous covers
 # [15], which runs after the follower starts
 SHARD_LM_STEPS, SHARD_DECODE_TIMEOUT_S = 32, 900
+# phase [17]: the dry run and the roofline. (a) the cells a child process
+# traces (arch, shape, multi-pod), within DRYRUN_TIMEOUT_S; (b) a step's
+# roofline share, its counted bound over its measured time, is at most
+# SHARE_MAX (above 1 the count or the clock is wrong)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False), ("gemma3-4b", "decode_32k", False),
+                ("mixtral-8x7b", "long_500k", True), ("simnet-c3", "simulate_64k", False))
+DRYRUN_TIMEOUT_S, SHARE_MAX = 300, 1.05
 # device kernels of a train step by name: (kind, regex), first match wins
 TRAIN_KERNEL_KINDS = (("GEMM (cuBLAS)", r"gemm|xmma|nvjet|cutlass"), ("softmax", r"softmax"),
                       ("mask (where)", r"where"), ("cast f32 -> bf16", r"bfloat16_copy"),
@@ -1079,7 +1103,7 @@ def lm_phase(torch, dev):
     log_profile(f"profile of {LM_PROFILE_STEPS} decode-step graph replays", p, top=8)
     k4_share(p)
     return dict(model=model, params=params, full=full, first=first, stream=stream,
-                launches=counts["decode_attn"])
+                launches=counts["decode_attn"], ms_step=1e3 * LM_BATCH / tps)
 
 
 def eager_stream(torch, model, params, state, first, n_steps, use_kernel):
@@ -2898,6 +2922,131 @@ def sharded_decode_phase(torch, dev, smi, want, started):
     return a["k4"]
 
 
+def counted_pair(torch, what, kernel, run):
+    """[17](b): ``run(use_kernel)`` under `runtime.opcount.OpCounter`, with
+    the kernel and plain: the kernel launched once, the counts equal.
+    Returns the kernel run's record."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import opcount
+
+    got = {}
+    for uk in (True, False):
+        before = ops.launches[kernel]
+        with torch.no_grad():
+            got[uk] = opcount.analyze(run, uk)
+        torch.cuda.synchronize()
+        got[uk]["launched"] = ops.launches[kernel] - before
+        del got[uk]["out"]
+    check(got[True]["launched"] > 0 and got[False]["launched"] == 0,
+          f"{what}: {kernel} launched {got[True]['launched']} times with the kernel, 0 plain")
+    for k in ("flops", "bytes_accessed", "collectives", "dot_flops_by_shape", "op_histogram",
+              "regions"):
+        check(got[True][k] == got[False][k], f"{what}: {k} equal with {kernel} and plain "
+              f"({got[True][k] if k in ('flops', 'bytes_accessed', 'regions') else '...'})")
+    return got[True]
+
+
+def count_simnet_step(torch, dev, pcfg, params):
+    """[17](b): one c3 step at [5]'s shape (L lanes, context Q, f32 state)
+    through `run_chunk`, with K1 and plain."""
+    from repro_torch.core import simulator as sim
+    from repro_torch.serving.simnet_engine import chunk_specs, run_chunk
+
+    cfg = sim.SimConfig(ctx_len=Q)
+    xs = {k: (torch.ones if k == "active" else torch.zeros)(shape, dtype=dt, device=dev)
+          for k, (shape, dt) in chunk_specs(L, 1).items()}
+    rw = torch.full((L,), cfg.retire_width, dtype=torch.int32, device=dev)
+    lc = torch.full((L,), cfg.ctx_len, dtype=torch.int32, device=dev)
+    states = {uk: sim.init_state(L, cfg, dev) for uk in (True, False)}  # made outside the count
+    return counted_pair(torch, f"SimNet c3 step, {L} lanes", "fused_step", lambda uk: run_chunk(
+        pcfg, cfg, uk, params, states[uk], xs, rw, lc))
+
+
+def count_decode_step(torch, lm):
+    """[17](b): one gemma3-4b decode step at [7]'s shape (a copy of its
+    re-homed state: K4 reads the live positions), with K4 and plain."""
+    from repro_torch.serving.engine import copy_state
+
+    model, params, full, first = lm["model"], lm["params"], lm["full"], lm["first"]
+    k4_bytes_check(torch, first.device, model.cfg)
+    states = {uk: copy_state(full) for uk in (True, False)}  # copied outside the count
+    return counted_pair(torch, f"{LM_ARCH} decode step, {LM_BATCH} requests", "decode_attn",
+                        lambda uk: model.decode_step(params, states[uk], first, use_kernel=uk))
+
+
+K4_OPS_RATIO = (2.9, 3.2)  # [17](b): the plain attention's bytes op by op over K4's region's
+
+
+def k4_bytes_check(torch, dev, cfg):
+    """[17](b): K4's region bytes against the plain attention counted op by
+    op (no region) on a full cache of [7]'s shape, no window: the plain
+    path reads and writes K and V in the einsums' contiguous copies and
+    reads them again in the GEMMs, three times to the region's once."""
+    from repro_torch.nn import attention as attn
+    from repro_torch.runtime import opcount
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn(LM_BATCH, cfg.n_heads, cfg.head_dim, device=dev, generator=g,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(LM_BATCH, LM_CACHE, cfg.n_kv_heads, cfg.head_dim, device=dev,
+                        generator=g, dtype=torch.bfloat16) for _ in range(2))
+    n = torch.tensor(LM_CACHE, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        plain = opcount.analyze(attn._plain_attention, q, k, v, n, dtype=torch.bfloat16, window=0)
+        region = opcount.analyze(attn.decode_attention, q, attn.KVCache(k, v), n, use_kernel=True)
+    ratio = plain["bytes_accessed"] / region["bytes_accessed"]
+    check(plain["flops"] == region["flops"] and K4_OPS_RATIO[0] <= ratio <= K4_OPS_RATIO[1],
+          f"K4's region on a full cache ({LM_BATCH} x {LM_CACHE} positions, no window): "
+          f"{region['bytes_accessed']:.6e} bytes, {region['flops']:.6e} FLOPs; the plain attention "
+          f"op by op {plain['bytes_accessed']:.6e} bytes ({ratio:.4f}x, within {K4_OPS_RATIO}), "
+          f"{plain['flops']:.6e} FLOPs")
+
+
+def dryrun_phase():
+    """[17](a): the dry run of DRYRUN_CELLS in one child process."""
+    log("[17] the dry run and the roofline on H100 figures")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        calls = [f"main(['--arch', {a!r}, '--shape', {s!r}, '--out', {out!r}"
+                 + (", '--multi-pod'" if mp else "") + "])" for a, s, mp in DRYRUN_CELLS]
+        code = ("import sys; from repro_torch.launch.dryrun import main; "
+                f"sys.exit(max([{', '.join(calls)}]))")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                             timeout=DRYRUN_TIMEOUT_S, cwd=str(ROOT))
+        for line in res.stdout.splitlines():
+            log(f"  | {line}")
+        check(res.returncode == 0, f"dry-run child exit code 0 ({time.perf_counter() - t0:.1f} s; "
+              f"stderr tail: {res.stderr[-1500:] if res.returncode else ''})")
+        for arch, shape, mp in DRYRUN_CELLS:
+            rec = json.loads((Path(out) / f"{arch}__{shape}__{'multipod' if mp else 'pod'}.json")
+                             .read_text())
+            r, c = rec["roofline"], rec["collectives"]
+            check(rec["status"] == "ok", f"{arch} × {shape} × {rec['mesh']} ({rec['n_devices']} "
+                  f"ranks): traced in {rec['compile_seconds']:.1f} s; a rank's {r['flops_per_device']:.4e} "
+                  f"FLOPs, {r['bytes_per_device']:.4e} bytes, {c['total_count']:.0f} collectives "
+                  f"({c['total_bytes']:.4e} wire bytes); compute {r['compute_s']:.4e} s, memory "
+                  f"{r['memory_s']:.4e} s, collective {r['collective_s']:.4e} s, dominant "
+                  f"{r['dominant']}; peak live {rec['memory_analysis']['peak_live_bytes_est']:.4e} B")
+            if arch.startswith("simnet"):
+                check(c["total_count"] == 0 and c["total_bytes"] == 0,
+                      f"{arch}: no collective at {rec['n_devices']} ranks (the lanes never talk)")
+
+
+def roofline_share(what, rec, peak, measured_ms, smi):
+    """[17](b): a step's bound from its counts over its measured time."""
+    from repro_torch.runtime.roofline import roofline
+
+    terms = roofline(rec["flops"], rec["bytes_accessed"], rec["collectives"]["total_bytes"],
+                     peak_flops=peak)
+    share = terms.bound_s * 1e3 / measured_ms
+    check(share <= SHARE_MAX, f"{what}: bound {terms.bound_s * 1e3:.4f} ms (compute "
+          f"{terms.compute_s * 1e3:.4f}, memory {terms.memory_s * 1e3:.4f}; {terms.dominant}) over "
+          f"{measured_ms:.4f} ms a step measured: roofline share {100 * share:.2f}% ({smi})")
+    return share
+
+
 def ptxas_entries(log):
     """Per kernel entry in nvcc's -Xptxas -v output: registers, static shared
     memory, stack frame and spills (stores, loads) in bytes."""
@@ -2992,6 +3141,7 @@ def main():
     teacher_forced_phase(torch, dev)
     routes, launches, traces, arrays = predicted_phase(torch, dev, pcfg, params)
     ring = routes["ring+fused_step"][1]
+    simnet_ms = 1e3 * ring["seconds"] / ring["n_steps"]  # [5]'s graph, a step
     mark("[4]-[5] teacher-forced and predicted packs")
     program_phase(torch, dev, routes, arrays, pcfg)
     launches["conv2s"] = conv2s_path_phase(torch, params, x)
@@ -3002,6 +3152,7 @@ def main():
     launches["decode_attn"] = lm["launches"]
     want16 = {"first": lm["first"].cpu().tolist(), "stream0": lm["stream"][0].cpu().tolist(),
               "stream": lm["stream"].cpu().tolist(), "logits0": decode_exactness_phase(torch, dev, lm)}
+    decode_count, decode_ms = count_decode_step(torch, lm), lm["ms_step"]  # for [17](b)
     mark("[7]-[8] gemma3-4b decode")
     del lm
     kinds_phase(torch, dev, arrays)
@@ -3027,6 +3178,15 @@ def main():
     log(f"[16] K4 launches a rank, (a): {k4_ranks}")
     next(r for r in rows if r["name"] == "decode_attn")["shard"]["launches_a_rank"] = k4_ranks
     mark("[16] sharded LM decode")
+    from repro_torch.runtime.roofline import PEAK_FLOPS, PEAK_FLOPS_F32
+
+    dryrun_phase()
+    simnet_count = count_simnet_step(torch, dev, pcfg, params)
+    roofline_share(f"SimNet c3 step at {L} lanes (f32 peak)", simnet_count, PEAK_FLOPS_F32,
+                   simnet_ms, smi)
+    roofline_share(f"{LM_ARCH} decode step at {LM_BATCH} requests (bf16 peak)", decode_count,
+                   PEAK_FLOPS, decode_ms, smi)
+    mark("[17] dry run and roofline")
     log("phase wall seconds: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 

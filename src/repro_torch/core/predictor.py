@@ -39,6 +39,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.features import N_FEATURES
 from repro_torch.core.simulator import torch_dtype
+from repro_torch.runtime import opcount
 
 N_HEADS = 3  # fetch, execution, store
 REG_SCALE = 1.0 / 64.0  # regression head works in scaled-cycle space
@@ -259,6 +260,26 @@ def lstm_stack(params, x, cfg: PredictorConfig):
     return out[:, -1]
 
 
+def conv_stack(params, x, cfg: PredictorConfig, use_kernel: bool = False):
+    """The c1/c3 k2s2 conv stack on ``x`` (B, N, 50) in the compute dtype:
+    padded to ``seq_padded``, then `kernels.ops.cnn_trunk` (K2, f32) with
+    ``use_kernel``, else one `conv2s` a layer. Returns (B, N'·C) f32. One
+    `runtime.opcount.region` whichever runs: its count is the GEMMs' work."""
+    convs = [params[f"conv{i}"] for i in range(int(cfg.kind[1]))]
+    work = lambda: opcount.trunk_work(x, convs, cfg.seq_padded)  # noqa: E731
+    with opcount.region("cnn_trunk", work):
+        h = _pad_seq(x, cfg)
+        if use_kernel:
+            from repro_torch.kernels import ops as kops
+
+            h = kops.cnn_trunk(convs, h)
+        else:
+            cdt = x.dtype
+            for lp in convs:
+                h = conv2s({"w": lp["w"].to(cdt), "b": lp["b"].to(cdt)}, h)
+    return h.reshape(h.shape[0], -1).to(torch.float32)
+
+
 def apply_trunk(params, x, cfg: PredictorConfig, use_kernel: bool = False):
     """(B, N, 50) -> (B, hidden) features before the output head.
 
@@ -279,17 +300,7 @@ def apply_trunk(params, x, cfg: PredictorConfig, use_kernel: bool = False):
             h = _dense(params[f"fc{i}"], h, act="relu")
         return h, params[f"fc{depth - 1}"]
     if kind in ("c1", "c3"):
-        depth = int(kind[1])
-        h = _pad_seq(x, cfg)
-        if use_kernel:
-            from repro_torch.kernels import ops as kops
-
-            h = kops.cnn_trunk([params[f"conv{i}"] for i in range(depth)], h)
-        else:
-            for i in range(depth):
-                p = {"w": params[f"conv{i}"]["w"].to(cdt), "b": params[f"conv{i}"]["b"].to(cdt)}
-                h = conv2s(p, h)
-        h = h.reshape(h.shape[0], -1).to(torch.float32)
+        h = conv_stack(params, x, cfg, use_kernel=use_kernel)
     elif kind.startswith("rb"):
         h = conv2s(params["stem"], _pad_seq(x, cfg))  # plain, never the K3 kernel
         for i in range(cfg.rb_blocks):
@@ -365,6 +376,17 @@ def make_predict_fn(params, cfg: PredictorConfig, use_kernel: bool = False):
     return predict
 
 
+def fused_step_region(params, cfg: PredictorConfig, state, cur_feat, cur_addr):
+    """The `runtime.opcount.region` of one c3 predictor step off the ring
+    state (`runtime.opcount.fused_step_work`: K1's assembly and trunk, and
+    the FC head), whichever route runs it: `make_fused_predict_fn`, or the
+    plain route's `model_input` and predictor in
+    `serving.simnet_engine.run_chunk`."""
+    work = lambda: opcount.fused_step_work(params, state, cur_feat, cur_addr,  # noqa: E731
+                                           cfg.seq_padded)
+    return opcount.region("fused_step", work)
+
+
 def make_fused_predict_fn(params, cfg: PredictorConfig):
     """Fused ring-state predictor: model-input assembly + the C3 conv
     trunk run in ONE kernel (`kernels.ops.fused_step`) straight off the
@@ -374,7 +396,8 @@ def make_fused_predict_fn(params, cfg: PredictorConfig):
     Signature matches `make_sim_scan`'s ``predict_state_fn``:
     (state, cur_feat, cur_addr) -> (L, 3) latencies. Requires the ring
     layout, kind == "c3", and an f32 state (the kernel assembles in f32;
-    the engine sends a bf16 state to the unfused kernel path).
+    the engine sends a bf16 state to the unfused kernel path). The step
+    is one `fused_step_region`.
     """
     if cfg.kind != "c3":
         raise ValueError(
@@ -386,11 +409,12 @@ def make_fused_predict_fn(params, cfg: PredictorConfig):
     conv = [params[f"conv{i}"] for i in range(3)]
 
     def predict(state, cur_feat, cur_addr):
-        h = kops.fused_step(conv, state, cur_feat, cur_addr, seq_padded=cfg.seq_padded)
-        h = h.reshape(h.shape[0], -1).to(torch.float32)
-        h = _dense(params["fc0"], h, act="relu")
-        raw = _dense(params["fc1"], h)
-        return decode_latency(raw, cfg)
+        with fused_step_region(params, cfg, state, cur_feat, cur_addr):
+            h = kops.fused_step(conv, state, cur_feat, cur_addr, seq_padded=cfg.seq_padded)
+            h = h.reshape(h.shape[0], -1).to(torch.float32)
+            h = _dense(params["fc0"], h, act="relu")
+            raw = _dense(params["fc1"], h)
+            return decode_latency(raw, cfg)
 
     return predict
 

@@ -1,1 +1,2 @@
-"""Launch entry points: ``python -m repro_torch.launch.train``."""
+"""Launch entry points: ``python -m repro_torch.launch.train`` and
+``python -m repro_torch.launch.dryrun``."""

@@ -92,10 +92,12 @@ def decode_token_specs(cfg: ModelConfig, shape: ShapeConfig):
     return sds((shape.global_batch,), torch.int32), ShardSpec(("batch",))
 
 
-def param_shapes_and_specs(model, generator=None):
+def param_shapes_and_specs(model, generator=None, masters: bool = False):
     """The params as meta tensors (``model.init`` under `shapes_only`: no
-    draw, no storage for the weights) and their ShardSpec tree."""
+    draw, no storage for the weights) and their ShardSpec tree.
+    ``masters``: the f32 leaves a train step takes (``init(masters=True)``)
+    instead of the stored dtypes a server holds."""
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
     with shapes_only():
-        shapes = model.init(generator, device="meta")
+        shapes = model.init(generator, device="meta", masters=masters)
     return shapes, model.param_specs()

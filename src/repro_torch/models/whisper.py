@@ -122,15 +122,13 @@ def _self_attn(lp, x, mask, *, cfg, dtype):
 
 
 def _cross_kv(lp, enc_out, *, cfg, dtype):
-    B, S, _ = enc_out.shape
     e = enc_out.to(dtype)
-    return ((e @ lp["wk"].to(dtype)).reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-            (e @ lp["wv"].to(dtype)).reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+    return (attn_lib._split_heads(e @ lp["wk"].to(dtype), cfg.n_kv_heads, cfg.head_dim),
+            attn_lib._split_heads(e @ lp["wv"].to(dtype), cfg.n_kv_heads, cfg.head_dim))
 
 
 def _cross_attn(lp, x, ck, cv, *, cfg, dtype):
-    B, T, _ = x.shape
-    q = (x.to(dtype) @ lp["wq"].to(dtype)).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    q = attn_lib._split_heads(x.to(dtype) @ lp["wq"].to(dtype), cfg.n_heads, cfg.head_dim)
     ctx = attn_lib.mha(q, ck, cv, None, dtype=dtype)
     return attn_lib.attn_out(lp, ctx, dtype=dtype)
 
@@ -264,7 +262,8 @@ def decode_step(params, cfg, state, token, *, constrain=_noop_constrain, use_ker
         x = x + constrain(attn_lib.attn_out(lp["self_attn"], ctx, dtype=dtype)[:, 0],
                           ("batch", None))
         h = layernorm(lp["ln_x"], x[:, None, :], dtype=dtype)[:, 0]
-        qx = (h.to(dtype) @ lp["cross_attn"]["wq"].to(dtype)).reshape(B, cfg.n_heads, cfg.head_dim)
+        qx = attn_lib._split_heads(h.to(dtype) @ lp["cross_attn"]["wq"].to(dtype), cfg.n_heads,
+                                   cfg.head_dim)
         ctx2 = attn_lib.decode_attention(qx, KVCache(state["ck"][i], state["cv"][i]), enc_len,
                                          dtype=dtype)
         ctx2 = constrain(ctx2[:, None], ("batch", None, "heads", None))

@@ -26,6 +26,9 @@ that owns its slot, and `decode_attention` attends on each rank's shard
 with every query head (the one token's q is gathered), then merges the
 ranks' rows by their log-sum-exp (`merge_shards`): GSPMD inserts that
 cross-shard max and sum by itself, the port writes it.
+
+Decode attention is one `runtime.opcount.region` (K4's work, counted on
+the live positions) whether K4 or the plain path runs it.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.nn.init import ShardSpec, dense_init, split_keys
 from repro_torch.nn.layers import rmsnorm, rmsnorm_params, rmsnorm_specs
+from repro_torch.runtime import opcount
 
 NEG_INF = -2.3819763e38  # large negative for masked logits (bf16-safe)
 
@@ -71,16 +75,14 @@ def attention_specs(*, qk_norm=False):
 
 
 def _split_heads(t, n, head_dim):
-    """(B, T, n * head_dim) -> (B, T, n, head_dim). A DTensor whose last
-    dim is split over more ranks than ``n`` divides among them (GQA with
-    fewer kv heads than ``model`` ranks: the split cuts a head) is first
-    gathered on those mesh dims."""
-    if isinstance(t, DTensor):
-        cut = [m for m, p in enumerate(t.placements) if p.is_shard(2)]
-        if n % math.prod(t.device_mesh.size(m) for m in cut):
-            t = t.redistribute(t.device_mesh, [Replicate() if m in cut else p
-                                               for m, p in enumerate(t.placements)])
-    return t.reshape(*t.shape[:2], n, head_dim)
+    """(..., n * head_dim) -> (..., n, head_dim). A DTensor whose last dim
+    is split over ranks that do not divide ``n`` (GQA with fewer kv heads
+    than ``model`` ranks, or heads that do not divide among them: the
+    split cuts a head) is first gathered on those mesh dims."""
+    from repro_torch.runtime.sharding import whole_if_uneven
+
+    t = whole_if_uneven(t, -1, n)
+    return t.reshape(*t.shape[:-1], n, head_dim)
 
 
 def project_qkv(params, x, *, n_heads, n_kv, head_dim, dtype=torch.bfloat16, qk_norm=False):
@@ -176,8 +178,22 @@ def _mha_on_mesh(q, k, v, mask, *, dtype, logit_cap):
 
 
 def attn_out(params, ctx, *, dtype=torch.bfloat16):
+    """The heads' context (B, T, H, hd) through ``wo``. A DTensor context
+    whose heads do not divide among the ranks that split ``wo``'s rows is
+    flattened on each rank's local tensor: its gradient comes back split
+    as ``wo``'s rows, and DTensor refuses to cut that split into heads."""
+    from repro_torch.runtime.sharding import cuts_groups
+
     B, T, H, hd = ctx.shape
-    return ctx.reshape(B, T, H * hd).to(dtype) @ params["wo"].to(dtype)
+    w = params["wo"].to(dtype)
+    if isinstance(ctx, DTensor) and cuts_groups(w, 0, H):
+        local = ctx.to_local()
+        x = DTensor.from_local(local.reshape(*local.shape[:2], -1), ctx.device_mesh,
+                               ctx.placements, shape=(B, T, H * hd),
+                               stride=(T * H * hd, H * hd, 1), run_check=False)
+    else:
+        x = ctx.reshape(B, T, H * hd)
+    return x.to(dtype) @ w
 
 
 class KVCache(NamedTuple):
@@ -206,11 +222,14 @@ def decode_attention(q1, cache: KVCache, cache_len, *, dtype=torch.bfloat16, win
     if isinstance(cache.k, DTensor):
         return _decode_on_mesh(q1, cache, cache_len, dtype=dtype, window=window,
                                use_kernel=use_kernel)
-    if use_kernel:
-        from repro_torch.kernels import ops as kernel_ops
+    work = lambda: opcount.decode_attn_work(q1, cache.k, cache.v, cache_len,  # noqa: E731
+                                            window=window)
+    with opcount.region("decode_attn", work):
+        if use_kernel:
+            from repro_torch.kernels import ops as kernel_ops
 
-        return kernel_ops.decode_attn(q1, cache.k, cache.v, cache_len, window=int(window))
-    return _plain_attention(q1, cache.k, cache.v, cache_len, dtype=dtype, window=window)
+            return kernel_ops.decode_attn(q1, cache.k, cache.v, cache_len, window=int(window))
+        return _plain_attention(q1, cache.k, cache.v, cache_len, dtype=dtype, window=window)
 
 
 def _plain_attention(q1, k, v, cache_len, *, dtype, window, offset=None):
@@ -287,14 +306,17 @@ def _decode_on_mesh(q1, cache, cache_len, *, dtype, window, use_kernel):
                                use_kernel=use_kernel)
     else:
         offset = shard_offsets(cache.k, 1)[0]
-        if use_kernel:
-            from repro_torch.kernels import ops as kernel_ops
+        work = lambda: opcount.decode_attn_work(q_l, k_l, v_l, n, window=window,  # noqa: E731
+                                                offset=offset, full=cache.k.shape[1])
+        with opcount.region("decode_attn", work):
+            if use_kernel:
+                from repro_torch.kernels import ops as kernel_ops
 
-            out, lse = kernel_ops.decode_attn(q_l, k_l, v_l, n, window=int(window), offset=offset,
-                                              return_lse=True)
-        else:
-            out, lse = _plain_attention(q_l, k_l, v_l, n, dtype=dtype, window=window,
-                                        offset=offset)
+                out, lse = kernel_ops.decode_attn(q_l, k_l, v_l, n, window=int(window),
+                                                  offset=offset, return_lse=True)
+            else:
+                out, lse = _plain_attention(q_l, k_l, v_l, n, dtype=dtype, window=window,
+                                            offset=offset)
         out = merge_shards(out.float(), lse, mesh, seq).to(dtype)
     return DTensor.from_local(out, mesh, rows, run_check=False)
 

@@ -61,8 +61,11 @@ def rglru_specs():
 
 def _rglru_gates(params, x, n_heads):
     """x: (..., d_rnn) -> (input_gate, rec_gate, log_a) each (..., d_rnn) f32."""
+    from repro_torch.runtime.sharding import whole_if_uneven
+
     shape = x.shape
     H = n_heads
+    x = whole_if_uneven(x, -1, H)  # heads that do not divide among the ranks
     xb = x.reshape(shape[:-1] + (H, shape[-1] // H)).to(torch.float32)
     wi = params["w_input_gate"].to(torch.float32)
     wr = params["w_rec_gate"].to(torch.float32)
@@ -265,6 +268,45 @@ def _wkv_step(S, r_t, k_t, v_t, w_t, uh):
     return y_t, w_t[..., None] * S + kv
 
 
+def _wkv_scan(rh, kh, vh, wh, uh, S):
+    """The wkv recurrence along T of (B, T, H, hd) f32 r, k, v and w from
+    state S: (y (B, T, H, hd), the last S). On DTensors each rank runs
+    the steps on its local rows (`_wkv_scan_local`)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(rh, DTensor):
+        return _wkv_scan_local(rh, kh, vh, wh, uh, S)
+    ys = []
+    for t in range(rh.shape[1]):
+        y_t, S = _wkv_step(S, rh[:, t], kh[:, t], vh[:, t], wh[:, t], uh)
+        ys.append(y_t)
+    return torch.stack(ys, dim=1), S
+
+
+def _wkv_scan_local(rh, kh, vh, wh, uh, S):
+    """`_wkv_scan` of DTensors: batch rows and heads keep their split (the
+    recurrence never mixes them), T and hd are gathered, and each rank
+    steps its local tensors, so a long sequence costs T plain ops a rank
+    instead of T DTensor dispatches. ``u`` is shared by the batch rows:
+    its gradient is a partial sum over the mesh dims that split them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.runtime.sharding import place
+
+    mesh = rh.device_mesh
+    want = [p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in rh.placements]
+    r, k, v, w = (place(t, mesh, want) for t in (rh, kh, vh, wh))
+    rows = r.placements
+    u = place(uh, mesh, [Shard(0) if p.is_shard(2) else Replicate() for p in rows])
+    u_grad = [Partial() if p.is_shard(0) else q for p, q in zip(rows, u.placements)]
+    s = place(S, mesh, [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2) else Replicate()
+                        for p in rows])
+    y, s_last = _wkv_scan(*(t.to_local() for t in (r, k, v, w)),
+                          u.to_local(grad_placements=u_grad), s.to_local())
+    return (DTensor.from_local(y, mesh, rows, run_check=False),
+            DTensor.from_local(s_last, mesh, s.placements, run_check=False))
+
+
 def rwkv_timemix(params, x, x_last, state0, *, n_heads, dtype=torch.bfloat16):
     """Sequence mode. x: (B, T, D); x_last: (B, D) previous-token carry;
     state0: (B, H, hd, hd) fp32 wkv state. Returns (y, x_last', state')."""
@@ -274,12 +316,7 @@ def rwkv_timemix(params, x, x_last, state0, *, n_heads, dtype=torch.bfloat16):
     rh, kh, vh = (_headify(t, n_heads).to(torch.float32) for t in (r, k, v))
     wh = _headify(w, n_heads)  # (B, T, H, hd) fp32
     uh = _headify(params["u"].to(torch.float32), n_heads)  # (H, hd)
-    S = state0.to(torch.float32)
-    ys = []
-    for t in range(T):
-        y_t, S = _wkv_step(S, rh[:, t], kh[:, t], vh[:, t], wh[:, t], uh)
-        ys.append(y_t)
-    y = torch.stack(ys, dim=1)  # (B, T, H, hd) fp32
+    y, S = _wkv_scan(rh, kh, vh, wh, uh, state0.to(torch.float32))  # (B, T, H, hd) fp32
     y = _group_norm(y, params["ln_g"], params["ln_b"])
     y = (y * g.to(torch.float32).reshape(B, T, D)).to(dtype)
     return y @ params["wo"].to(dtype), x[:, -1, :], S

@@ -33,6 +33,7 @@ lookup in a vocab-sharded table), the vocab-sharded cross-entropy in
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Callable, Sequence, Tuple
 
 import torch
@@ -235,12 +236,10 @@ def vocab_parallel_rows(table: DTensor, ids) -> DTensor:
     embedding rule fails on such a table (an ``IndexError`` in
     ``MaskPartial`` with 2-D ids, torch 2.11-2.13), hence this by hand.
     ``ids``: a plain tensor, the same on every rank."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-
     mesh = table.device_mesh
     rows = tuple(p if p == Shard(0) else Replicate() for p in table.placements)
     local = table.redistribute(mesh, rows).to_local()
-    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, rows)
+    _, offset = local_shape_and_offset(table.shape, mesh, rows)
     lo, n = offset[0], local.shape[0]
     inside = (ids >= lo) & (ids < lo + n)
     picked = local[(ids - lo).clamp(0, max(n - 1, 0))]
@@ -252,10 +251,48 @@ def vocab_parallel_rows(table: DTensor, ids) -> DTensor:
 
 def shard_offsets(x: DTensor, dim: int) -> Tuple[int, int]:
     """(first index, length) of this rank's shard of ``x`` along ``dim``."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-
-    shape, offset = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
+    shape, offset = local_shape_and_offset(x.shape, x.device_mesh, x.placements)
     return offset[dim], shape[dim]
+
+
+def local_shape_and_offset(shape, mesh: DeviceMesh, placements) -> Tuple[tuple, tuple]:
+    """(shape, first index along each dim) of this rank's shard of a
+    tensor of ``shape`` placed by ``placements`` (``Shard``/``Replicate``/
+    ``Partial``): DTensor's layout, each ``Shard(d)`` cutting dim ``d``
+    into ceil-sized pieces in mesh-dim order (the last may be short or
+    empty). Host integers only: torch's own helper builds index tensors,
+    which a fake tensor mode cannot read back."""
+    shape, offset = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for m, p in enumerate(placements):
+        if p.is_shard():
+            d, n = p.dim, mesh.size(m)
+            piece = -(-shape[d] // n)
+            start = min(coord[m] * piece, shape[d])
+            offset[d] += start
+            shape[d] = min(piece, shape[d] - start)
+    return tuple(shape), tuple(offset)
+
+
+def cuts_groups(x, dim: int, n: int) -> bool:
+    """True if ``x`` is a DTensor whose ``dim`` is split over ranks that do
+    not divide ``n``: a reshape of that dim into ``n`` groups (heads, say)
+    would cut a group, which DTensor refuses (GSPMD pads)."""
+    if not isinstance(x, DTensor):
+        return False
+    dim %= x.ndim
+    return n % math.prod(x.device_mesh.size(m) for m, p in enumerate(x.placements)
+                         if p.is_shard(dim)) != 0
+
+
+def whole_if_uneven(x, dim: int, n: int):
+    """``x`` with ``dim`` gathered over the mesh dims that split it where
+    they cut ``n`` groups (`cuts_groups`); otherwise ``x`` as it is."""
+    if not cuts_groups(x, dim, n):
+        return x
+    dim %= x.ndim
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_shard(dim) else p
+                                          for p in x.placements])
 
 
 def split_over(x: DTensor, dim: int):

@@ -64,6 +64,7 @@ from repro_torch.core.predictor import (
     PredictorConfig,
     apply_raw,
     decode_latency,
+    fused_step_region,
     make_fused_predict_fn,
 )
 from repro_torch.core.simulator import (
@@ -74,6 +75,7 @@ from repro_torch.core.simulator import (
     init_state,
     lane_sums,
     make_sim_scan,
+    model_input,
     pack_workloads,
     packed_tensors,
     pad_packed_lanes,
@@ -131,16 +133,22 @@ def run_chunk(pcfg: Optional[PredictorConfig], sim_cfg: SimConfig, use_kernel: b
     predictor ``params`` (None: teacher-forced)."""
     predict = predict_state = None
     if pcfg is not None:
+        def predict(x):
+            raw = apply_raw(params, x, pcfg, use_kernel=use_kernel)
+            return decode_latency(raw, pcfg)
+
         if uses_fused_step(pcfg, sim_cfg, use_kernel):
             # fused sim-step: assembly + conv trunk in one kernel off the
             # ring buffer. f32 state only: the kernel assembles in f32,
             # while the unfused path rounds the dynamic features through
             # the state dtype — a bf16 state goes to the path below.
             predict_state = make_fused_predict_fn(params, pcfg)
-        else:
-            def predict(x):
-                raw = apply_raw(params, x, pcfg, use_kernel=use_kernel)
-                return decode_latency(raw, pcfg)
+        elif uses_fused_step(pcfg, sim_cfg, True):
+            # the fused step's configuration without the kernel: the
+            # step's own model_input + predict, counted as K1's step
+            def predict_state(state, cur_feat, cur_addr):
+                with fused_step_region(params, pcfg, state, cur_feat, cur_addr):
+                    return predict(model_input(state, cur_feat, cur_addr, sim_cfg))
     step = make_sim_scan(
         predict, sim_cfg,
         retire_width=retire_width, lane_ctx=lane_ctx, emit_outputs=False,
@@ -505,6 +513,38 @@ class SimNetEngine:
             raise ValueError(f"a bucket of {n_lanes} lanes does not split over the mesh's "
                              f"{self._lanes.n_shards} lane shards")
         return n_lanes // self._lanes.n_shards
+
+    def lower(self, n_lanes: int, chunk: int) -> dict:
+        """The counterpart of the reference's dry-run lowering. Where the
+        reference lowers the chunk program against shape stand-ins for
+        XLA to compile, the port traces it: one chunk of this rank's share
+        of ``n_lanes`` lanes runs through `run_chunk` on fake tensors
+        (``FakeTensorMode``: shapes only, nothing allocated or computed)
+        under `runtime.opcount.OpCounter`. Returns the counter's record
+        (``flops``, ``bytes_accessed``, ``collectives``,
+        ``dot_flops_by_shape``, ``op_histogram``), ``memory_analysis``
+        (argument, output and peak-live bytes) and ``trace_seconds``.
+        The plain ops run: a kernel cannot run on fake tensors, and its
+        `runtime.opcount.region` counts the same work either way."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from repro_torch.runtime import opcount
+
+        lanes = self._shard_lanes(n_lanes)
+        mode = FakeTensorMode()
+        with mode:
+            params = None if self.params is None else tree_map(mode.from_tensor, self.params)
+            state = init_state(lanes, self.sim_cfg, self.device)
+            xs = {k: torch.zeros(shape, dtype=dtype, device=self.device)
+                  for k, (shape, dtype) in chunk_specs(lanes, chunk).items()}
+            rw = torch.full((lanes,), self.sim_cfg.retire_width, dtype=torch.int32,
+                            device=self.device)
+            lc = torch.full((lanes,), self.sim_cfg.ctx_len, dtype=torch.int32, device=self.device)
+            res = opcount.analyze(run_chunk, self.pcfg, self.sim_cfg, False, params, state,
+                                  xs, rw, lc, fake_mode=mode)
+        res.pop("out")
+        res["n_lanes"] = lanes
+        return res
 
     def executable(self, n_lanes: int, chunk: int):
         """The resident chunk program from the cache (built exactly once

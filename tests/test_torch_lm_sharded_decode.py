@@ -38,6 +38,7 @@ A one-rank mesh is bit for bit the engine without a mesh (plain tensors,
 the same step).
 """
 import dataclasses
+import faulthandler
 import multiprocessing
 import os
 import pickle
@@ -185,6 +186,7 @@ def _decode_run(arch, params_np, mesh, mode):
 def _rank(rank, init, params_file, queue):
     """One rank of the world: every run it takes part in, for every arch,
     once the fixture has written the params."""
+    faulthandler.enable(all_threads=True)  # a crash prints every thread's stack
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=WORLD,
                             timeout=timedelta(seconds=TIMEOUT_S))

@@ -2,9 +2,14 @@
 one machine, each a process holding its shards (DTensors placed by the
 rule table ``rules_for(cfg, "train")``).
 
-The test process is rank 0 of each world; the other ranks are spawned
-(`_rank`, with ``OMP_NUM_THREADS=1``) and meet it at a file store, and
-every rank runs the same program. Two worlds run in turn, a (data 2,
+Every rank of each world is a spawned process (`_rank`, with
+``OMP_NUM_THREADS=1`` and faulthandler on); they meet at a file store
+of their own world, every rank runs the same program, and the test
+process only collects what they put on a queue. (The test process, an
+xdist worker that has run XLA's CPU runtime and a one-rank group, runs
+no collective of these worlds: when rank 0 was this process, one run in
+three under the full suite's load died of a segfault in gloo's
+all-gather, ROADMAP F7.) Two worlds run in turn, a (data 2,
 model 2) mesh of 4 ranks and a (data 1, model 2) mesh of 2; everything is
 computed in the module's fixture and the tests read it.
 
@@ -35,6 +40,7 @@ others (the sequence-parallel ``seq`` gathers and partial sums, the
 vocab-sharded embedding and cross-entropy, the norm).
 """
 import dataclasses
+import faulthandler
 import multiprocessing
 import os
 import shutil
@@ -159,9 +165,21 @@ def _plain(tree):
     return tree
 
 
+def _tensors(tree):
+    """`_plain`'s inverse for what rank 0 sends: arrays back to tensors."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tensors(v) for v in tree)
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(tree)
+    return tree
+
+
 def _rank(rank, world, shape, init, inputs, ckpt, queue):
-    """One rank's program in a world of ``shape``. Rank 0 (the test
-    process) returns its results; the others put theirs on ``queue``."""
+    """One rank's program in a world of ``shape``; it puts its results on
+    ``queue`` (rank 0's in full, the others' metrics and losses)."""
+    faulthandler.enable(all_threads=True)  # a crash prints every thread's stack
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
                             timeout=timedelta(seconds=TIMEOUT_S))
@@ -210,8 +228,6 @@ def _rank(rank, world, shape, init, inputs, ckpt, queue):
                                               ckpt_dir=ckpt["12"], **TRAIN_KW)["losses"]
     finally:
         dist.destroy_process_group()
-    if queue is None:
-        return out
     queue.put((rank, _plain(out)))
 
 
@@ -248,12 +264,12 @@ def worlds(tmp_path_factory):
             init = f"file://{tmp_path_factory.mktemp('world')}/store"
             queue = ctx.Queue()
             procs = [ctx.Process(target=_rank, args=(r, world, shape, init, inputs, ckpt, queue),
-                                 daemon=True) for r in range(1, world)]
+                                 daemon=True) for r in range(world)]
             for p in procs:
                 p.start()
             try:
-                mine = _rank(0, world, shape, init, inputs, ckpt, None)
                 others = dict(queue.get(timeout=TIMEOUT_S) for _ in procs)
+                mine = _tensors(others.pop(0))
             finally:
                 for p in procs:
                     p.join(TIMEOUT_S)
