@@ -118,7 +118,29 @@ launches each makes:
   three times, 2.9-3.2 times the region's bytes, at equal FLOPs); each
   step's bound (``runtime.roofline`` on the H100's figures, the f32 peak
   for SimNet, the bf16 one for gemma) over [5]'s and [7]'s measured ms a
-  step is its roofline share, at most 1.05.
+  step is its roofline share, at most 1.05. A decode cell is traced as
+  rank 0 and as the last rank and recorded as the slower (gemma3-4b's:
+  the last); recurrentgemma-2b × train_4k at one layer counts DTensor's
+  ``Shard → Shard`` as all-to-alls;
+- every LM family sharded (phase [18]): two ranks on the one card, a
+  (data 1, model 2) mesh, DTensor's ``Shard → Shard`` run as an
+  all-to-all through the ranks' device buffers beside the all-gathers
+  and reduce-scatters: (a) recurrentgemma-2b at full width through a
+  sharded prefill of [12]'s prompts and ``DecodeEngine(mesh=)`` with K4's
+  shard mode on its attention layers (its launches a step a rank, the
+  prefill's and first step's tokens held to [12]'s, the prefill's and a
+  step's collectives counted; the same model in f32, its sharded first
+  step's logits held to one card's); (b) every non-dense family at
+  reduced width in f32, one sharded train step and a sharded prefill and
+  decode each held to one rank on the card (every all-to-all through the
+  peer buffers; rwkv6's run some); (c) rwkv6-1.6b trained at full width,
+  cut to 2 of 24 layers, on one card for 3 steps of 4 x 1024 tokens (its
+  wkv loop's backward at O(T)), and one layer's step counted by
+  ``runtime.opcount``.
+
+``python3 chip_smoke.py --only 18`` (or ``17``, ``17,18``) runs the
+named phases alone after the builds ([18] after [12]'s recurrentgemma-2b
+run, for its tokens) and prints no result line.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -129,6 +151,7 @@ measured (``{"kernels": [...]}``) and the verdict
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -221,6 +244,9 @@ FAMILY_RUNS = (("mixtral-8x7b", 16, 2048), ("qwen2-vl-72b", 20, 2048),
                ("recurrentgemma-2b", None, 2048), ("whisper-large-v3", None, 64),
                ("rwkv6-1.6b", None, 2048))
 VLM_PATCHES = 256  # qwen2-vl: stub image patches in the leading positions
+# the eager steps each family's graph stream is held to (and timed over):
+# LM_STEPS cut to 16 for the script's time
+FAMILY_EAGER_STEPS = 16
 # phase [12]'s exactness, reduced f32 on the card and the CPU: phi3.5-moe
 # (mixtral's code without the SWA ring) besides the five; 32-token prompts
 # (EXACT_BATCH x 32 tokens: two MoE groups of 64) and 16 steps wrap
@@ -270,20 +296,58 @@ SHARD_LOSS_RTOL, SHARD_NORM_RTOL, SHARD_REDUCED_RTOL = 1e-3, 1e-2, 1e-5
 # equal, logits within EXACT_TOL); (c) decode_long: batch 1, a seeded
 # cache of SHARD_LONG_SEQ positions (half a rank) at SHARD_LONG_POS, no
 # prefill (the plain prefill's logits would take over 30 GB a layer at
-# 32k), SHARD_LONG_STEPS steps; first-step logits within FULL_TOL of one
+# 32k), SHARD_LONG_STEPS steps (16 cut to 8 for the script's time);
+# first-step logits within FULL_TOL of one
 # rank's unsharded K4 decode
-SHARD_LONG_SEQ, SHARD_LONG_POS, SHARD_LONG_STEPS = 32768, 32000, 16
-# (a)'s greedy steps: [7]'s 64 cut to 32 for the script's time (each eager
-# step ~0.95 s, host-bound); the follower's wait at the rendezvous covers
+SHARD_LONG_SEQ, SHARD_LONG_POS, SHARD_LONG_STEPS = 32768, 32000, 8
+# (a)'s greedy steps: [7]'s 64 cut to 8 for the script's time (each eager
+# step ~0.65-0.95 s, host-bound); the follower's wait at the rendezvous covers
 # [15], which runs after the follower starts
-SHARD_LM_STEPS, SHARD_DECODE_TIMEOUT_S = 32, 900
+SHARD_LM_STEPS, SHARD_DECODE_TIMEOUT_S = 8, 900
 # phase [17]: the dry run and the roofline. (a) the cells a child process
 # traces (arch, shape, multi-pod), within DRYRUN_TIMEOUT_S; (b) a step's
 # roofline share, its counted bound over its measured time, is at most
 # SHARE_MAX (above 1 the count or the clock is wrong)
-DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False), ("gemma3-4b", "decode_32k", False),
-                ("mixtral-8x7b", "long_500k", True), ("simnet-c3", "simulate_64k", False))
+# (arch, shape, multi-pod, overrides): the hybrid's train step at one layer
+# (an RG-LRU block, its 10 heads gathered over 16 ranks); a decode cell is
+# traced as rank 0 and as the last rank, and recorded as the slower
+# (gemma3-4b's windowed layers: the last)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False, None), ("gemma3-4b", "decode_32k", False, None),
+                ("mixtral-8x7b", "long_500k", True, None), ("simnet-c3", "simulate_64k", False, None),
+                ("recurrentgemma-2b", "train_4k", False, {"n_layers": 1}))
 DRYRUN_TIMEOUT_S, SHARE_MAX = 300, 1.05
+# phase [18]: every LM family sharded on the card, two ranks sharing it on a
+# (data 1, model 2) mesh (gloo; the all-gathers, reduce-scatters and the
+# all-to-alls of DTensor's Shard -> Shard through the ranks' device
+# buffers). (a) recurrentgemma-2b at full width, bf16: [12]'s LM_BATCH x
+# 2048-token prompts through a sharded prefill (the RG-LRU's all-to-alls),
+# then SHARD_HYBRID_STEPS greedy steps of DecodeEngine(mesh=) with K4's
+# shard mode on its attention layers; the prefill's and the first step's
+# tokens equal [12]'s; in f32, the first step's logits held to one card's.
+# (b) FAMILY_EXACT_ARCHS at reduced width in f32, each held to
+# one rank on the card: one sharded train step at accum_steps 2 (loss
+# TRAIN_LOSS_RTOL, grad norm TRAIN_NORM_RTOL relative) and
+# SHARD_FAMILY_STEPS sharded decode steps from FAMILY_EXACT_PROMPT-token
+# prompts (tokens equal, logits within SHARD_FAMILY_LOGIT_TOL). (c)
+# rwkv6-1.6b trained at full width on one card through launch.train.train
+# (bf16 on f32 masters, remat, accum_steps 2): RWKV_TRAIN_STEPS steps of
+# RWKV_TRAIN_BATCH x RWKV_TRAIN_SEQ tokens at RWKV_TRAIN_LR, cut to
+# RWKV_TRAIN_LAYERS of 24 layers for the script's time (the wkv loop is
+# host-bound: ~100 s a step at 24 layers on the H100; lr 1e-3 made the
+# full-width loss jump from 11.5 to 22.3 in one step); one layer's step at
+# RWKV_COUNT_SEQ counted by runtime.opcount (the counter runs in Python
+# for each op: ~600k ops at seq 1024)
+SHARD_HYBRID_ARCH, SHARD_HYBRID_STEPS, SHARD_FAMILY_STEPS = "recurrentgemma-2b", 16, 8
+# (a)'s first-step logits are held to one card in f32 at full width
+# (SHARD_HYBRID_F32_PROMPT-token prompts, within SHARD_HYBRID_F32_TOL x max
+# |logit|); in bf16 the two ranks' rounded partial sums move them 5.97% of
+# max |logit| from [12]'s (an H100 80GB HBM3 at 700 W; [12]'s own kernel
+# and plain paths differ by 3.0%), past FULL_TOL, so that is printed
+SHARD_HYBRID_F32_PROMPT, SHARD_HYBRID_F32_TOL = 256, 1e-3
+SHARD_FAMILY_LOGIT_TOL = {"hybrid": 1e-4}  # else 1e-5 (the RG-LRU scan sums in another order)
+SHARD_FAMILY_TIMEOUT_S = 600
+RWKV_TRAIN_ARCH, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS = "rwkv6-1.6b", 4, 1024, 3
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_LR, RWKV_COUNT_SEQ = 2, 1e-4, 256
 # device kernels of a train step by name: (kind, regex), first match wins
 TRAIN_KERNEL_KINDS = (("GEMM (cuBLAS)", r"gemm|xmma|nvjet|cutlass"), ("softmax", r"softmax"),
                       ("mask (where)", r"where"), ("cast f32 -> bf16", r"bfloat16_copy"),
@@ -1301,16 +1365,17 @@ def family_phase(torch, dev, arch, layers, prompt):
     st = copy_state(full)  # copied outside the timed pass, as generate's
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eager_toks, _ = eager_stream(torch, model, params, st, first, LM_STEPS, use_kernel=True)
+    n = FAMILY_EAGER_STEPS
+    eager_toks, _ = eager_stream(torch, model, params, st, first, n, use_kernel=True)
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
     del st
-    log(f"  eager decode, same {LM_STEPS} steps: {LM_STEPS * LM_BATCH / eager_s:.1f} tokens/s, "
-        f"{1e3 * eager_s / LM_STEPS:.3f} ms per decode step; graph "
-        f"{eager_s * tps / (LM_STEPS * LM_BATCH):.2f}x faster")
-    check(torch.equal(eager_toks, stream), f"greedy tokens of the step graph equal the eager steps' "
-          f"({LM_STEPS} x {LM_BATCH})")
-    k4_timed = first_step_gates(torch, model, params, full, first, copy_state)
+    log(f"  eager decode, the first {n} steps: {n * LM_BATCH / eager_s:.1f} tokens/s, "
+        f"{1e3 * eager_s / n:.3f} ms per decode step; graph "
+        f"{eager_s * tps / (n * LM_BATCH):.2f}x faster")
+    check(torch.equal(eager_toks, stream[:n]), f"greedy tokens of the step graph equal the eager steps' "
+          f"({n} x {LM_BATCH})")
+    k4_timed, logits0, plain0 = first_step_gates(torch, model, params, full, first, copy_state)
     with graph.lock:
         graph.load(full, first)
         p = profiled(torch, lambda: graph.decode(LM_PROFILE_STEPS), LM_PROFILE_STEPS)
@@ -1324,18 +1389,21 @@ def family_phase(torch, dev, arch, layers, prompt):
     check(k4_per_step == n_attn, f"the profiler counts {k4_per_step:.1f} K4 device kernels a step, one "
           f"per attention layer ({n_attn})")
     out = dict(arch=arch, layers=cfg.n_layers, prefill_s=prefill_s, tps=tps,
-               step_ms=1e3 * LM_BATCH / tps, eager_ms=1e3 * eager_s / LM_STEPS, nodes=nodes,
+               step_ms=1e3 * LM_BATCH / tps, eager_ms=1e3 * eager_s / n, nodes=nodes,
                build_s=graph.graph.capture_seconds + graph.graph.instantiate_seconds,
                busy=p["busy"] / p["wall"], ops=p["ops"], k4_share=k4_ms / p["busy"],
                k4=counts["decode_attn"], peak=max(prefill_peak, decode_peak), dropped=dropped,
-               k4_timed=k4_timed)
+               k4_timed=k4_timed, first=first.cpu().tolist(), stream0=stream[0].cpu().tolist(),
+               logits0=logits0, plain0=plain0)
     del engine, graph, full, params, leaves, batch, p
     torch.cuda.empty_cache()
     return out
 
 
 def first_step_gates(torch, model, params, full, first, copy_state):
-    """The first decode step at full width, K4 path against plain path.
+    """The first decode step at full width, K4 path against plain path
+    (returns K4's times at the step's first shape, and the K4 path's and
+    the plain path's logits over the live vocabulary on the CPU).
     (1) Every K4 call of the step against the kernel's plain version on
     the same inputs (the family's real decode shapes), at DECODE_TOL.
     (2) The step's logits over the live vocabulary within FULL_TOL x max
@@ -1412,7 +1480,7 @@ def first_step_gates(torch, model, params, full, first, copy_state):
     check(d0 <= FULL_TOL * scale, f"first-step logits, K4 path vs plain path"
           f"{' (routing pinned to the K4 step)' if picks['k4'] else ''}: max |diff| {d0:.4f} within "
           f"{FULL_TOL} x max |logit| = {FULL_TOL * scale:.4f}")
-    return next(iter(timed.values()), None)
+    return next(iter(timed.values()), None), a.cpu(), b.cpu()
 
 
 def families_exactness_phase(torch, dev):
@@ -1463,7 +1531,7 @@ def families_exactness_phase(torch, dev):
 def families_phase(torch, dev):
     """Phase [12]: each other LM family at full width on the card, one at
     a time (each freed before the next loads), then their exactness at
-    reduced width. Returns K4's launches over the families' runs."""
+    reduced width. Returns each family's numbers by arch."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                  check=True, capture_output=True, text=True).stdout.strip()
     results = [family_phase(torch, dev, arch, layers, prompt) for arch, layers, prompt in FAMILY_RUNS]
@@ -1478,6 +1546,7 @@ def families_phase(torch, dev):
             f"{r['eager_ms']:.3f} | {r['build_s']:.3f} | {r['nodes']} | {100 * r['busy']:.1f}% | "
             f"{r['ops']:.1f} | {100 * r['k4_share']:.1f}% | {r['k4']} | {k4} | {r['peak']:.2f} | {dropped}")
     families_exactness_phase(torch, dev)
+    return {r["arch"]: r for r in results}
     return sum(r["k4"] for r in results)
 
 
@@ -2809,10 +2878,12 @@ def sharded_decode_follower(rank, init, queue):
         raise
 
 
-def start_decode_follower():
-    """Phase [16]'s second rank, started before [15] so that it has reached
-    the card by [16]; it waits at the group's rendezvous (its file store)
-    meanwhile. Returns what `sharded_decode_phase` takes."""
+def start_follower(target):
+    """The second rank of a two-rank phase (``target(rank, init, queue)``:
+    [16]'s, [18]'s), started with the spawn method ahead of its phase so
+    that it has reached the card by then; it waits at the group's
+    rendezvous (its file store) meanwhile. Returns what `join_follower`
+    takes."""
     import multiprocessing
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -2820,28 +2891,20 @@ def start_decode_follower():
     init = f"file://{work.name}/store"
     mp = multiprocessing.get_context("spawn")
     queue = mp.Queue()
-    follower = mp.Process(target=sharded_decode_follower, args=(1, init, queue), daemon=True)
+    follower = mp.Process(target=target, args=(1, init, queue), daemon=True)
     follower.start()
     return follower, queue, init, work
 
 
-def sharded_decode_phase(torch, dev, smi, want, started):
-    """Phase [16]: sharded LM decode, two ranks on the one card on a (data
-    1, model 2) mesh (see the SHARD_LONG_* constants and the module
-    docstring). ``want``: [7]'s first tokens and first decode step's
-    tokens, [8]'s first-step logits of [7]'s kernel path (CPU);
-    ``started``: `start_decode_follower`'s. Returns (a)'s K4 launches a
-    rank."""
-    import numpy as np
-
-    t_phase = time.perf_counter()
-    log(f"[16] sharded LM decode: {LM_ARCH}, two ranks on {dev}, mesh (data 1, model 2), the KV "
-        f"caches split along their sequence (kvseq -> model) ({smi})")
+def join_follower(started, mine, timeout_s):
+    """Runs ``mine(init)`` (rank 0's part) and waits for the follower's
+    report; fails if it reported an error or did not exit 0. Returns
+    (what ``mine`` returned, the follower's report)."""
     follower, queue, init, work = started
     try:
-        mine, keep = sharded_decode_rank(torch, 0, init)
+        ours = mine(init)
         theirs = None
-        deadline = time.perf_counter() + SHARD_DECODE_TIMEOUT_S
+        deadline = time.perf_counter() + timeout_s
         while theirs is None and time.perf_counter() < deadline:
             try:
                 theirs = queue.get(timeout=5)
@@ -2856,6 +2919,23 @@ def sharded_decode_phase(torch, dev, smi, want, started):
         if follower.is_alive():
             follower.kill()
         work.cleanup()
+    return ours, theirs
+
+
+def sharded_decode_phase(torch, dev, smi, want, started):
+    """Phase [16]: sharded LM decode, two ranks on the one card on a (data
+    1, model 2) mesh (see the SHARD_LONG_* constants and the module
+    docstring). ``want``: [7]'s first tokens and first decode step's
+    tokens, [8]'s first-step logits of [7]'s kernel path (CPU);
+    ``started``: `start_follower`'s. Returns (a)'s K4 launches a
+    rank."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    log(f"[16] sharded LM decode: {LM_ARCH}, two ranks on {dev}, mesh (data 1, model 2), the KV "
+        f"caches split along their sequence (kvseq -> model) ({smi})")
+    (mine, keep), theirs = join_follower(started, lambda init: sharded_decode_rank(torch, 0, init),
+                                         SHARD_DECODE_TIMEOUT_S)
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(LM_ARCH)
@@ -2919,6 +2999,413 @@ def sharded_decode_phase(torch, dev, smi, want, started):
           f"(c) both ranks' tokens equal; first-step logits within {FULL_TOL} x max |logit| = "
           f"{FULL_TOL * scale:.4f} of one rank's unsharded K4 decode (max |diff| {dc:.4f})")
     log(f"[16] sharded LM decode phase: {time.perf_counter() - t_phase:.1f} s")
+    return a["k4"]
+
+
+def family_train_batch(torch, cfg, device, seed):
+    """A (EXACT_BATCH, FAMILY_EXACT_PROMPT) train batch from a numpy seed:
+    tokens, a loss mask and the family's extra inputs (frames, patches,
+    M-RoPE positions), the same on every device."""
+    import numpy as np
+
+    from repro_torch.launch.train import extras_for
+
+    rng = np.random.default_rng(seed)
+    B, T = EXACT_BATCH, FAMILY_EXACT_PROMPT
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, T)).astype(np.int32),
+             "loss_mask": (rng.random((B, T)) < 0.8).astype(np.float32)}
+    batch.update({k: np.asarray(f(B, T)) for k, f in extras_for(cfg).items()})
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def family_train_step(torch, dev, cfg, mesh):
+    """One train step of ``cfg`` at accum_steps 2 from masters drawn by a CPU
+    generator: on ``mesh`` (DTensors placed by the train rules) or, with
+    None, unsharded. Returns its loss and grad norm."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.training.optimizer import AdamConfig, adam_init, adam_state_specs
+    from repro_torch.training.train_loop import make_train_step
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(SEED), device=dev, masters=True)
+    opt, kw = adam_init(params), {}
+    if mesh is not None:
+        rules, specs = sh.rules_for(cfg, "train"), model.param_specs()
+        params = sh.shard_tree(params, specs, rules, mesh)
+        opt = sh.shard_tree(opt, adam_state_specs(specs), rules, mesh)
+        kw = dict(constrain=sh.make_constrain(mesh, rules), layer_specs=model.layer_specs(),
+                  grad_shardings=sh.spec_tree_to_shardings(specs, rules, mesh))
+    step = make_train_step(model, AdamConfig(lr=TRAIN_EXACT_LR), accum_steps=2, **kw)
+    _, _, m = step(params, opt, family_train_batch(torch, cfg, dev, SEED + 3))
+    return {k: float(m[k]) for k in ("loss", "grad_norm")}
+
+
+def family_sharded_run(torch, dev, arch, mesh, rank):
+    """[18](b) of one family on this rank: reduced f32, a sharded train step
+    and a sharded prefill (their collectives and exchanged bytes counted),
+    then SHARD_FAMILY_STEPS steps of DecodeEngine(mesh=); rank 0 also runs
+    both unsharded on the card. Returns (numbers, rank 0's tensors)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime import opcount
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.serving.engine import DecodeEngine, lm_decoder
+
+    rcfg = reduced(get_config(arch), dtype="float32")
+    rmodel = build_model(rcfg)
+    rplain = rmodel.init(torch.Generator().manual_seed(SEED), device=dev)
+    rrules = sh.rules_for(rcfg, "decode")
+    rparams = sh.shard_tree(rplain, rmodel.param_specs(), rrules, mesh)
+    batch = family_batch(torch, rcfg, dev, EXACT_BATCH, FAMILY_EXACT_PROMPT, SEED + 1)
+    seq = FAMILY_EXACT_PROMPT + SHARD_FAMILY_STEPS
+    lgs, keep = [], {}
+    mesh_mod.EXCHANGED.clear()
+    # the train step's and the prefill's collectives, as CollectiveCounter
+    # and as the dry run's counter (runtime.opcount) see them
+    with mesh_mod.CollectiveCounter() as counter, opcount.OpCounter() as counted:
+        res = {"train": family_train_step(torch, dev, rcfg, mesh)}
+        with torch.no_grad():
+            logits, st = rmodel.prefill(rparams, batch, constrain=sh.make_constrain(mesh, rrules))
+    res["coll"] = (dict(counter.calls), dict(mesh_mod.EXCHANGED),
+                   dict(counted.result()["collectives"]["count_by_op"]))
+    with torch.no_grad():
+        rfirst = sh.argmax_last(logits[:, -1])
+        rengine = DecodeEngine(recording(torch, lm_decoder(rmodel, use_kernel=True), lgs), rparams,
+                               mesh=mesh)
+        rtoks, _, _ = rengine.generate(rmodel.rehome_state(st, seq), rfirst, SHARD_FAMILY_STEPS)
+    res.update(first=rfirst.cpu().tolist(), tokens=rtoks.cpu().tolist(),
+               placed=sorted({str(tuple(t.placements)) for t in tensors(rparams)
+                              if hasattr(t, "placements")}))
+    if rank == 0:
+        keep = {"logits": torch.stack(lgs[-SHARD_FAMILY_STEPS:]).cpu(),
+                "one_train": family_train_step(torch, dev, rcfg, None)}
+        with torch.no_grad():
+            logits, st = rmodel.prefill(rplain, batch)
+            one_first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            toks, one_lgs = eager_stream(torch, rmodel, rplain, rmodel.rehome_state(st, seq),
+                                         one_first, SHARD_FAMILY_STEPS, use_kernel=True)
+        keep["one"] = (one_first.cpu().tolist(), toks.cpu().tolist(), one_lgs.float().cpu())
+    return res, keep
+
+
+def sharded_families_rank(torch, rank, init):
+    """One rank of phase [18], run by this process (rank 0) and the
+    follower: joins the two-rank group, then (b) each FAMILY_EXACT_ARCHS
+    family at reduced width in f32 (`family_sharded_run`; one that raises
+    is recorded, and fails its gate once every family has run), then (a)
+    recurrentgemma-2b at full width: a sharded prefill (its collectives
+    and exchanged bytes counted), its first step's logits, one step's
+    collectives, then DecodeEngine(mesh=) with K4; then the same model in
+    f32, a sharded prefill and first step beside one card's (rank 0).
+    Returns its numbers as plain data, and rank 0's tensors for the
+    gates."""
+    import dataclasses
+    import traceback
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.serving.engine import EAGER_WARMUP_STEPS, DecodeEngine, copy_state, lm_decoder
+
+    backend = mesh_mod.init_ranks(rank, 2, init, "cuda", timeout_s=SHARD_FAMILY_TIMEOUT_S)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out, keep = {"rank": rank, "backend": backend, "b": {}}, {}
+    try:
+        mesh = mesh_mod.make_mesh((1, 2), ("data", "model"), "cuda")
+        # (b) every family at reduced width in f32, two ranks against one
+        for arch in FAMILY_EXACT_ARCHS:
+            try:
+                out["b"][arch], keep[arch] = family_sharded_run(torch, dev, arch, mesh, rank)
+            except Exception as e:  # both ranks raise alike; its gate fails after the others ran
+                out["b"][arch] = {"error": f"{type(e).__name__}: {e}"}
+                if rank == 0:
+                    log(f"  (b) {arch} raised:\n{traceback.format_exc()[-3000:]}")
+
+        # (a) the hybrid at full width
+        cfg = get_config(SHARD_HYBRID_ARCH)
+        model = build_model(cfg)
+        rules = sh.rules_for(cfg, "decode")
+        constrain = sh.make_constrain(mesh, rules)
+        params = sh.shard_tree(model.init(torch.Generator(device=dev).manual_seed(SEED), device=dev),
+                               model.param_specs(), rules, mesh)
+        batch = family_batch(torch, cfg, dev, LM_BATCH, LM_PROMPT, SEED)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh_mod.EXCHANGED.clear()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mesh_mod.CollectiveCounter() as counter:
+                logits, state = model.prefill(params, batch, constrain=constrain)
+            torch.cuda.synchronize()
+            out["prefill_s"] = time.perf_counter() - t0
+            out["prefill_peak"] = torch.cuda.max_memory_allocated(dev)
+            out["prefill_coll"] = (dict(counter.calls), dict(counter.bytes), dict(mesh_mod.EXCHANGED))
+            full = model.rehome_state(state, LM_PROMPT + LM_STEPS)
+            del state, batch
+            first = sh.argmax_last(logits[:, -1])
+            del logits
+            lg, _ = model.decode_step(params, copy_state(full), first, constrain=constrain,
+                                      use_kernel=True)
+            keep["logits0"] = lg.full_tensor()[:, :cfg.vocab].float().cpu()
+            mesh_mod.EXCHANGED.clear()
+            with mesh_mod.CollectiveCounter() as counter:
+                model.decode_step(params, copy_state(full), first, constrain=constrain,
+                                  use_kernel=True)
+            out["step_coll"] = (dict(counter.calls), dict(counter.bytes), dict(mesh_mod.EXCHANGED))
+        engine = DecodeEngine(lm_decoder(model, use_kernel=True), params, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        stream, final, tps = engine.generate(full, first, SHARD_HYBRID_STEPS)
+        out["a"] = dict(mode=engine.mode, tps=tps, k4=ops.launches["decode_attn"],
+                        launches=dict(ops.launches),
+                        steps=SHARD_HYBRID_STEPS + min(SHARD_HYBRID_STEPS, EAGER_WARMUP_STEPS),
+                        peak=torch.cuda.max_memory_allocated(dev), pos=int(sh.local(final["pos"])),
+                        first=first.cpu().tolist(), stream=stream.cpu().tolist(),
+                        placed=sorted({str(tuple(t.placements)) for t in tensors(full)
+                                       if hasattr(t, "placements")}))
+        del full, final, engine, stream, params
+        torch.cuda.empty_cache()
+
+        # (a) in f32 at full width: the sharded prefill and first step
+        # against one card (rank 0), at a shorter prompt
+        fcfg = dataclasses.replace(cfg, dtype="float32")
+        fmodel = build_model(fcfg)
+        frules = sh.rules_for(fcfg, "decode")
+        fplain = fmodel.init(torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        fparams = sh.shard_tree(fplain, fmodel.param_specs(), frules, mesh)
+        if rank != 0:
+            del fplain
+        fbatch = family_batch(torch, fcfg, dev, LM_BATCH, SHARD_HYBRID_F32_PROMPT, SEED)
+        seq = SHARD_HYBRID_F32_PROMPT + 1
+        with torch.no_grad():
+            logits, st = fmodel.prefill(fparams, fbatch, constrain=sh.make_constrain(mesh, frules))
+            ffirst = sh.argmax_last(logits[:, -1])
+            lg, _ = fmodel.decode_step(fparams, fmodel.rehome_state(st, seq), ffirst,
+                                       constrain=sh.make_constrain(mesh, frules), use_kernel=True)
+            out["f32"] = {"first": ffirst.cpu().tolist(), "step": sh.argmax_last(lg).cpu().tolist()}
+            keep["f32_logits"] = lg.full_tensor()[:, :cfg.vocab].float().cpu()
+            del fparams, logits, st, lg
+            if rank == 0:
+                logits, st = fmodel.prefill(fplain, fbatch)
+                one_first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+                lg, _ = fmodel.decode_step(fplain, fmodel.rehome_state(st, seq), one_first,
+                                           use_kernel=True)
+                keep["f32_one"] = (one_first.cpu().tolist(), lg[:, :cfg.vocab].float().cpu())
+                del fplain, logits, st, lg
+        dist.barrier()
+    finally:
+        mesh_mod.close_peer_buffers()
+        dist.destroy_process_group()
+    return out, keep
+
+
+def sharded_families_follower(rank, init, queue):
+    """Phase [18]'s second rank, started with the spawn method."""
+    import torch
+
+    cuda_flags(torch)
+    try:
+        queue.put(sharded_families_rank(torch, rank, init)[0])
+    except BaseException as e:  # the controller reports it and fails
+        queue.put({"rank": rank, "error": repr(e)})
+        raise
+
+
+def train_step_count(torch, device, arch, layers, batch, seq):
+    """`runtime.opcount`'s count (FLOPs, bytes) of one train step of ``arch``
+    at full width cut to ``layers`` layers (each layer is the same work)
+    on a (``batch``, ``seq``) batch, at the config's accum_steps: the step
+    ``launch.train.train`` runs (f32 masters, remat, Adam). On a card the
+    ops run on real tensors; on the CPU on fake ones (shapes only), so the
+    count of a full-width step costs no memory."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch._tree import tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime import opcount
+    from repro_torch.training.optimizer import AdamConfig, adam_init
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = build_model(cfg)
+    step = make_train_step(model, AdamConfig(), accum_steps=cfg.accum_steps)
+    shapes, _ = specs_lib.param_shapes_and_specs(model, masters=True)
+    fake = FakeTensorMode(allow_non_fake_inputs=True) if torch.device(device).type == "cpu" else None
+    with fake or contextlib.nullcontext():
+        params = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device), shapes)
+        tokens = torch.zeros((batch, seq), dtype=torch.int32, device=device)
+        b = {"tokens": tokens, "loss_mask": torch.ones((batch, seq), device=device)}
+    res = opcount.analyze(step, params, adam_init(params), b, fake_mode=fake)
+    return {"flops": res["flops"], "bytes": res["bytes_accessed"], "ops": res["n_ops"],
+            "seconds": res["trace_seconds"]}
+
+
+def rwkv_train_phase(torch, dev, smi):
+    """[18](c): rwkv6-1.6b trained at full width, RWKV_TRAIN_LAYERS deep, on
+    the card for RWKV_TRAIN_STEPS steps of launch.train.train, and one
+    layer's step counted by runtime.opcount."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import train
+
+    CUT_ARCH = f"{RWKV_TRAIN_ARCH}-cut"
+    cfg = get_config(RWKV_TRAIN_ARCH)
+    B, S = RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ
+    log(f"[18] (c) {RWKV_TRAIN_ARCH} at full width (d_model {cfg.d_model}, {cfg.n_heads} wkv heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), CUT to {RWKV_TRAIN_LAYERS} of "
+        f"{cfg.n_layers} layers, {cfg.dtype} on f32 masters, remat {cfg.remat}, accum_steps "
+        f"{cfg.accum_steps}: {RWKV_TRAIN_STEPS} steps of launch.train.train at batch {B} x seq {S}, "
+        f"lr {RWKV_TRAIN_LR} ({smi})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    registry.ARCHS[CUT_ARCH] = dataclasses.replace(cfg, n_layers=RWKV_TRAIN_LAYERS)
+    try:
+        t0 = time.perf_counter()
+        res = train(CUT_ARCH, reduced=False, steps=RWKV_TRAIN_STEPS, batch=B, seq=S,
+                    lr=RWKV_TRAIN_LR, device=dev, log_every=1)
+    finally:
+        registry.ARCHS.pop(CUT_ARCH)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses_c = np.array(res["losses"])
+    norms = np.array([m["grad_norm"] for m in res["metrics"]])
+    step_s = np.array(res["monitor"].history)
+    del res
+    torch.cuda.empty_cache()
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    log(f"  {RWKV_TRAIN_STEPS} steps in {wall:.1f} s (init included); step ms: "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in step_s)}; after the first {ms:.1f} ms a step, "
+        f"{B * S / ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} GB ({smi})")
+    log(f"  losses {losses_c.round(4).tolist()}; grad norms {norms.round(4).tolist()}")
+    check(np.isfinite(losses_c).all() and np.isfinite(norms).all() and losses_c[-1] < losses_c[0],
+          f"(c) every loss and grad norm finite, the losses falling: {losses_c[0]:.4f} -> "
+          f"{losses_c[-1]:.4f}")
+    count = train_step_count(torch, dev, RWKV_TRAIN_ARCH, 1, B, RWKV_COUNT_SEQ)
+    log(f"  (c) runtime.opcount of one layer's train step at {B} x {RWKV_COUNT_SEQ} (the same step at "
+        f"n_layers 1, on the card): {count['bytes']:.6e} bytes, {count['flops']:.6e} FLOPs, "
+        f"{count['ops']} ops, counted in {count['seconds']:.1f} s")
+
+
+def sharded_families_phase(torch, dev, smi, want, started):
+    """Phase [18]: every LM family sharded on the card (see the
+    SHARD_HYBRID_* / RWKV_TRAIN_* constants and the module docstring).
+    ``want``: [12]'s recurrentgemma-2b numbers (its first tokens, first
+    decode step's tokens and K4-path first-step logits); ``started``:
+    `start_follower`'s. (c) runs first, while the follower waits at the
+    rendezvous. Returns (a)'s K4 launches a rank."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+
+    t_phase = time.perf_counter()
+    rwkv_train_phase(torch, dev, smi)
+    t_c = time.perf_counter() - t_phase
+    log(f"[18] every LM family sharded: two ranks on {dev}, mesh (data 1, model 2), the all-to-alls "
+        f"of DTensor's Shard -> Shard through the ranks' device buffers ({smi})")
+    (mine, keep), theirs = join_follower(started, lambda init: sharded_families_rank(torch, 0, init),
+                                         SHARD_FAMILY_TIMEOUT_S)
+    a2a = {}
+    for arch in FAMILY_EXACT_ARCHS:
+        for r in (mine, theirs):
+            check("error" not in r["b"][arch], f"(b) {arch} rank {r['rank']} ran to the end "
+                  f"({r['b'][arch].get('error', 'no error')})")
+            calls, moved, counted = r["b"][arch]["coll"]
+            n, n_single = calls.get("shard_dim_alltoall", 0), calls.get("all_to_all_single", 0)
+            a2a[arch, r["rank"]] = n + n_single
+            check((n > 0) == (moved.get("shard_dim_alltoall", 0) > 0)
+                  and (n_single > 0) == (moved.get("all_to_all_single", 0) > 0)
+                  and counted.get("all-to-all", 0) == n + n_single,
+                  f"(b) {arch} rank {r['rank']}, train step and prefill: every all-to-all through the "
+                  f"peer buffers: _dtensor.shard_dim_alltoall {n} calls, "
+                  f"{moved.get('shard_dim_alltoall', 0) / 1e3:.3f} kB; all_to_all_single {n_single} "
+                  f"calls; runtime.opcount counts {counted.get('all-to-all', 0)} \"all-to-all\"; "
+                  f"collectives {dict(sorted(calls.items()))}")
+    check(all(a2a[RWKV_TRAIN_ARCH, r] > 0 for r in (0, 1)),
+          f"(b) {RWKV_TRAIN_ARCH}'s Shard -> Shard redistributes ran as all-to-alls through the peer "
+          f"buffers on both ranks ({a2a[RWKV_TRAIN_ARCH, 0]} a rank); all-to-alls by arch and rank: "
+          f"{ {f'{a} {r}': n for (a, r), n in a2a.items()} }")
+    for arch in FAMILY_EXACT_ARCHS:
+        b, tb, k = mine["b"][arch], theirs["b"][arch], keep[arch]
+        fam = get_config(arch).family
+        tol = SHARD_FAMILY_LOGIT_TOL.get(fam, 1e-5)
+        one, two = k["one_train"], b["train"]
+        dl = abs(two["loss"] - one["loss"]) / abs(one["loss"])
+        dn = abs(two["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+        check(b["train"] == tb["train"] and dl <= TRAIN_LOSS_RTOL and dn <= TRAIN_NORM_RTOL,
+              f"(b) {arch} ({fam}) reduced f32, one train step at accum_steps 2: two ranks' loss "
+              f"{two['loss']:.6f} and grad norm {two['grad_norm']:.6f} = one rank's within "
+              f"{TRAIN_LOSS_RTOL} ({dl:.2e}) and {TRAIN_NORM_RTOL} ({dn:.2e}) relative")
+        one_first, one_toks, one_lgs = k["one"]
+        d = float((k["logits"] - one_lgs).abs().max())
+        check(b["first"] == one_first and b["tokens"] == one_toks and tb["tokens"] == b["tokens"]
+              and bool(torch.allclose(k["logits"], one_lgs, rtol=tol, atol=tol)),
+              f"(b) {arch}: sharded prefill and {SHARD_FAMILY_STEPS} steps of DecodeEngine(mesh=) give "
+              f"one rank's tokens, logits within {tol} (max |diff| {d:.3e}); params placed "
+              f"{b['placed']}")
+    cfg = get_config(SHARD_HYBRID_ARCH)
+    n_attn = n_attention_layers(cfg)
+    a, ta = mine["a"], theirs["a"]
+    ms = 1e3 * LM_BATCH / a["tps"]
+    log(f"  (a) {SHARD_HYBRID_ARCH} at full width ({cfg.n_layers} layers, {n_attn} attention), backend "
+        f"{mine['backend']}, engine mode {a['mode']}; state placements {a['placed']}: prefill {LM_BATCH} "
+        f"x {LM_PROMPT} tokens {mine['prefill_s']:.3f} s (rank 1 {theirs['prefill_s']:.3f} s), peak "
+        f"{mine['prefill_peak'] / 1e9:.2f} / {theirs['prefill_peak'] / 1e9:.2f} GB; decode "
+        f"{SHARD_HYBRID_STEPS} steps x {LM_BATCH}: {a['tps']:.1f} tokens/s, {ms:.3f} ms a step (rank 1 "
+        f"{1e3 * LM_BATCH / ta['tps']:.3f} ms), peak {a['peak'] / 1e9:.2f} / {ta['peak'] / 1e9:.2f} GB a "
+        f"rank; no speed claimed: both ranks share one card ({smi})")
+    for r in (mine, theirs):
+        for what in ("prefill", "step"):
+            calls, sent, moved = r[f"{what}_coll"]
+            log(f"  (a) rank {r['rank']} {what} collectives (calls, bytes handed in): "
+                + ", ".join(f"{k} {c} x, {sent[k] / 1e6:.3f} MB" for k, c in sorted(calls.items()))
+                + "; through the peer buffers: "
+                + (", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in sorted(moved.items())) or "none"))
+    for r in (a, ta):
+        check(r["k4"] == n_attn * r["steps"] and sum(r["launches"].values()) == r["k4"],
+              f"(a) K4's shard mode on each rank's kvseq shard, once an attention layer and step: "
+              f"{r['k4']} launches = {n_attn} x {r['steps']} (warm-up {r['steps'] - SHARD_HYBRID_STEPS} + "
+              f"{SHARD_HYBRID_STEPS})")
+    check(a["stream"] == ta["stream"] and a["pos"] == LM_PROMPT + SHARD_HYBRID_STEPS
+          and a["mode"] == "eager", f"(a) both ranks return the same tokens; final position {a['pos']}")
+    check(a["first"] == want["first"] and a["stream"][0] == want["stream0"],
+          f"(a) the sharded prefill's greedy tokens and the first decode step's equal [12]'s: "
+          f"{a['stream'][0]}")
+    scale = float(want["logits0"].abs().max())
+    d0 = float((keep["logits0"] - want["logits0"]).abs().max())
+    d_plain = float((keep["logits0"] - want["plain0"]).abs().max())
+    d_paths = float((want["plain0"] - want["logits0"]).abs().max())
+    log(f"  (a) bf16 first-step logits, max |diff|: sharded vs [12]'s kernel path {d0:.4f} "
+        f"({100 * d0 / scale:.2f}% of max |logit| {scale:.4f}), vs its plain path {d_plain:.4f}; [12]'s "
+        f"two paths {d_paths:.4f} (printed, not gated: bf16 rounding of the ranks' partial sums, "
+        f"held in f32 below)")
+    one_first, one_lg = keep["f32_one"]
+    scale = float(one_lg.abs().max())
+    d32 = float((keep["f32_logits"] - one_lg).abs().max())
+    check(mine["f32"]["first"] == one_first and theirs["f32"] == mine["f32"]
+          and mine["f32"]["step"] == torch.argmax(one_lg, dim=-1).tolist()
+          and d32 <= SHARD_HYBRID_F32_TOL * scale,
+          f"(a) in f32 at full width ({LM_BATCH} x {SHARD_HYBRID_F32_PROMPT}-token prompts): the sharded "
+          f"prefill's and first step's tokens = one card's, the step's logits within "
+          f"{SHARD_HYBRID_F32_TOL} x max |logit| = {SHARD_HYBRID_F32_TOL * scale:.2e} (max |diff| "
+          f"{d32:.3e}, {d32 / scale:.2e} of max |logit|)")
+
+    log(f"[18] every LM family sharded: {time.perf_counter() - t_phase:.1f} s ((c) {t_c:.1f} s)")
     return a["k4"]
 
 
@@ -3002,29 +3489,52 @@ def k4_bytes_check(torch, dev, cfg):
           f"{plain['flops']:.6e} FLOPs")
 
 
-def dryrun_phase():
-    """[17](a): the dry run of DRYRUN_CELLS in one child process."""
-    log("[17] the dry run and the roofline on H100 figures")
+def _cell_tag(overrides):
+    return "".join(f"__{k}{v}" for k, v in (overrides or {}).items())
+
+
+def start_dryrun():
+    """[17](a)'s child process, started ahead of its phase so that its
+    trace (CPU work) runs beside the phases before it. Returns what
+    `dryrun_phase` takes."""
     (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
-        calls = [f"main(['--arch', {a!r}, '--shape', {s!r}, '--out', {out!r}"
-                 + (", '--multi-pod'" if mp else "") + "])" for a, s, mp in DRYRUN_CELLS]
-        code = ("import sys; from repro_torch.launch.dryrun import main; "
-                f"sys.exit(max([{', '.join(calls)}]))")
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
-                             timeout=DRYRUN_TIMEOUT_S, cwd=str(ROOT))
-        for line in res.stdout.splitlines():
+    out = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    calls = [f"run_cell({a!r}, {s!r}, {mp}, Path({out.name!r}), overrides={ov!r}, "
+             f"tag={_cell_tag(ov)!r})" for a, s, mp, ov in DRYRUN_CELLS]
+    code = ("import sys; from pathlib import Path; from repro_torch.launch.dryrun import run_cell; "
+            f"sys.exit(any(str(r['status']).startswith('FAIL') for r in [{', '.join(calls)}]))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    logs = [open(Path(out.name) / name, "w+") for name in ("stdout", "stderr")]  # no pipe to fill
+    child = subprocess.Popen([sys.executable, "-c", code], env=env, stdout=logs[0], stderr=logs[1],
+                             text=True, cwd=str(ROOT))
+    return child, out, logs, time.perf_counter()
+
+
+def dryrun_phase(started):
+    """[17](a): the dry run of DRYRUN_CELLS in one child process
+    (`start_dryrun`'s)."""
+    log("[17] the dry run and the roofline on H100 figures")
+    child, work, logs, t0 = started
+    try:
+        child.wait(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+    stdout, stderr = (f.seek(0) or f.read() for f in logs)
+    for f in logs:
+        f.close()
+    with work as out:
+        for line in stdout.splitlines():
             log(f"  | {line}")
-        check(res.returncode == 0, f"dry-run child exit code 0 ({time.perf_counter() - t0:.1f} s; "
-              f"stderr tail: {res.stderr[-1500:] if res.returncode else ''})")
-        for arch, shape, mp in DRYRUN_CELLS:
-            rec = json.loads((Path(out) / f"{arch}__{shape}__{'multipod' if mp else 'pod'}.json")
-                             .read_text())
+        check(child.returncode == 0, f"dry-run child exit code 0 ({time.perf_counter() - t0:.1f} s since "
+              f"it started; stderr tail: {stderr[-1500:] if child.returncode else ''})")
+        for arch, shape, mp, ov in DRYRUN_CELLS:
+            rec = json.loads((Path(out) / f"{arch}__{shape}__{'multipod' if mp else 'pod'}"
+                                            f"{_cell_tag(ov)}.json").read_text())
             r, c = rec["roofline"], rec["collectives"]
-            check(rec["status"] == "ok", f"{arch} × {shape} × {rec['mesh']} ({rec['n_devices']} "
-                  f"ranks): traced in {rec['compile_seconds']:.1f} s; a rank's {r['flops_per_device']:.4e} "
+            check(rec["status"] == "ok", f"{arch} × {shape} × {rec['mesh']} ({rec['n_devices']} ranks"
+                  f"{', ' + str(ov) if ov else ''}): traced in {rec['compile_seconds']:.1f} s; rank "
+                  f"{rec.get('rank', 0)}'s {r['flops_per_device']:.4e} "
                   f"FLOPs, {r['bytes_per_device']:.4e} bytes, {c['total_count']:.0f} collectives "
                   f"({c['total_bytes']:.4e} wire bytes); compute {r['compute_s']:.4e} s, memory "
                   f"{r['memory_s']:.4e} s, collective {r['collective_s']:.4e} s, dominant "
@@ -3032,6 +3542,13 @@ def dryrun_phase():
             if arch.startswith("simnet"):
                 check(c["total_count"] == 0 and c["total_bytes"] == 0,
                       f"{arch}: no collective at {rec['n_devices']} ranks (the lanes never talk)")
+            elif shape.startswith("decode"):
+                bounds = {k: v["roofline"]["bound_s"] for k, v in rec["ranks"].items()}
+                check(set(rec["ranks"]) == {"0", str(rec["n_devices"] - 1)}
+                      and rec["rank"] == rec["n_devices"] - 1,
+                      f"{arch} × {shape}: traced as rank 0 and the last rank, the record the last's "
+                      f"(its windowed layers' live positions; bound s by rank {bounds})")
+
 
 
 def roofline_share(what, rec, peak, measured_ms, smi):
@@ -3071,8 +3588,22 @@ def ptxas_entries(log):
     return entries
 
 
+def only_phases(torch, dev, smi, only, t_start):
+    """``--only 17,18``: the named phases alone (after the builds), to
+    check one on the card; [18] takes [12]'s recurrentgemma-2b run first,
+    for the one-card tokens it is held to. Prints no result line."""
+    if "18" in only:
+        started = start_follower(sharded_families_follower)
+        want = family_phase(torch, dev, SHARD_HYBRID_ARCH, None, LM_PROMPT)
+        sharded_families_phase(torch, dev, smi, want, started)
+    if "17" in only:
+        dryrun_phase(start_dryrun())
+    log(f"chip_smoke.py --only {','.join(only)} wall time {time.perf_counter() - t_start:.1f} s ({smi})")
+
+
 def main():
     t_start = time.perf_counter()
+    only = sys.argv[2].split(",") if sys.argv[1:2] == ["--only"] else []
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         sys.exit("chip_smoke.py must run from the root of a checkout (src/repro_torch is missing)")
     sys.path.insert(0, str(ROOT / "src"))
@@ -3131,9 +3662,12 @@ def main():
                   f"{p.blocks_per_sm} blocks an SM")
 
     marks = [("[1]-[2] set-up and builds", time.perf_counter())]
+    if only:
+        return only_phases(torch, dev, smi, only, t_start)
 
-    def mark(name):  # each phase's wall seconds, logged at the end
+    def mark(name):  # each phase's wall seconds, logged now and at the end
         marks.append((name, time.perf_counter()))
+        log(f"[time] {name}: {marks[-1][1] - marks[-2][1]:.1f} s, {marks[-1][1] - t_start:.1f} s in all")
 
     pcfg, params, rows, x = kernel_phase(torch, dev)
     rows += conv_decode_kernel_phase(torch, dev, params, x)
@@ -3162,7 +3696,7 @@ def main():
     serving_phase(torch, dev, pcfg, params, arrays)
     mark("[11] serving")
     del traces
-    families_phase(torch, dev)
+    want18 = families_phase(torch, dev)[SHARD_HYBRID_ARCH]  # [18](a)'s one-card tokens
     mark("[12] LM families")
     ops.reset_launches()
     k4_served, first_loss_13c = lm_train_phase(torch, dev, smi)
@@ -3170,23 +3704,30 @@ def main():
     mark("[13] LM training")
     mesh_phase(torch, dev, pcfg, params, arrays, ring, launches["fused_step"])
     mark("[14] lane mesh")
-    started16 = start_decode_follower()
+    started16 = start_follower(sharded_decode_follower)
     k4_sharded = sharded_train_phase(torch, dev, smi, first_loss_13c)
     log(f"[15] K4 launches decoding the two-rank model: {k4_sharded}")
     mark("[15] sharded LM training")
+    started17 = start_dryrun()  # its child traces beside [16]
     k4_ranks = sharded_decode_phase(torch, dev, smi, want16, started16)
     log(f"[16] K4 launches a rank, (a): {k4_ranks}")
-    next(r for r in rows if r["name"] == "decode_attn")["shard"]["launches_a_rank"] = k4_ranks
+    k4_row = next(r for r in rows if r["name"] == "decode_attn")
+    k4_row["shard"]["launches_a_rank"] = k4_ranks
     mark("[16] sharded LM decode")
     from repro_torch.runtime.roofline import PEAK_FLOPS, PEAK_FLOPS_F32
 
-    dryrun_phase()
+    started18 = start_follower(sharded_families_follower)  # waits through [17] and [18](c)
+    dryrun_phase(started17)
     simnet_count = count_simnet_step(torch, dev, pcfg, params)
     roofline_share(f"SimNet c3 step at {L} lanes (f32 peak)", simnet_count, PEAK_FLOPS_F32,
                    simnet_ms, smi)
     roofline_share(f"{LM_ARCH} decode step at {LM_BATCH} requests (bf16 peak)", decode_count,
                    PEAK_FLOPS, decode_ms, smi)
     mark("[17] dry run and roofline")
+    k4_hybrid = sharded_families_phase(torch, dev, smi, want18, started18)
+    log(f"[18] K4 launches a rank, (a): {k4_hybrid}")
+    k4_row["shard"]["hybrid_launches_a_rank"] = k4_hybrid
+    mark("[18] every LM family sharded")
     log("phase wall seconds: " + ", ".join(
         f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks, marks[1:])))
 

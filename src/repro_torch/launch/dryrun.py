@@ -3,17 +3,23 @@ shape × mesh) cell at the reference's world of 512 ranks, recorded as
 JSON for the roofline report, without a cluster and without allocating.
 
 Where the reference compiles each cell for 512 virtual XLA devices and
-reads the compiled HLO, the port traces it: the process is rank 0 of a
+reads the compiled HLO, the port traces it: the process is a rank of a
 ``"fake"`` process group of 512 (or 2 × 256) ranks on a ``FakeStore``
 (collectives return at once and move nothing), builds
 ``launch/mesh.py::make_production_mesh`` on it, places the params, the
 optimizer state and the decode state as DTensors of fake local shards
 (``FakeTensorMode``: shapes only) and runs the port's own step once under
-`runtime.opcount.OpCounter`, which counts rank 0's FLOPs, bytes and
-collectives. The record has the reference's file name and keys;
-``compile_seconds`` holds the trace's seconds and ``cost_analysis_raw``
-the counter's raw totals. Each cell starts its group and destroys it on
-the way out, so cells run one after another in one process.
+`runtime.opcount.OpCounter`, which counts that rank's FLOPs, bytes and
+collectives. DTensor's ``Shard → Shard`` counts as the all-to-all the
+card runs, on a CPU mesh too (`card_all_to_alls`). A train or prefill
+cell is traced as rank 0 (every rank runs the same work); a decode cell
+as rank 0 and as the last rank (a cache split along its sequence holds a
+windowed layer's live positions on the last ranks), and its record is
+the slower rank's (``rank``; both under ``ranks``). The record has the
+reference's file name and keys; ``compile_seconds`` holds the traces'
+seconds and ``cost_analysis_raw`` the counter's raw totals. Each trace
+starts its group and destroys it on the way out, so cells run one after
+another in one process.
 
 The steps are the port's: train is ``make_train_step`` (f32 masters, the
 rule table's ``constrain``, ``grad_shardings`` and ``layer_specs``, Adam
@@ -85,22 +91,60 @@ def _mesh_name(multi_pod: bool) -> str:
 
 
 @contextlib.contextmanager
-def fake_world(multi_pod: bool, device_type: str):
-    """This process as rank 0 of a ``"fake"`` group spanning the production
-    mesh (16 × 16 ranks, or 2 × 16 × 16 with ``multi_pod``: the
-    reference's 512 devices), and the mesh; the group ends on the way
-    out."""
+def fake_world(multi_pod: bool, device_type: str, rank: int = 0):
+    """This process as ``rank`` of a ``"fake"`` group spanning the
+    production mesh (16 × 16 ranks, or 2 × 16 × 16 with ``multi_pod``:
+    the reference's 512 devices), and the mesh, with DTensor's ``Shard →
+    Shard`` run as on the card (`card_all_to_alls`); the group ends on the
+    way out."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         raise RuntimeError("a dry run starts its own process group: end this process's "
                            "group first")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=512 if multi_pod else 256)
     try:
-        yield make_production_mesh(multi_pod=multi_pod, device_type=device_type)
+        with card_all_to_alls():
+            yield make_production_mesh(multi_pod=multi_pod, device_type=device_type)
     finally:
+        _forget_meshes()
         dist.destroy_process_group()
+
+
+def _forget_meshes():
+    """Clear DTensor's caches of sharding decisions. They key on a mesh's
+    equality (its shape and dim names), so a later world of the same shape
+    would be handed this world's meshes, whose groups end with it (another
+    rank's groups have other names)."""
+    from torch.distributed.tensor import DTensor, _redistribute
+
+    clear_native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)
+    if clear_native is not None:
+        clear_native()
+    DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache_clear()
+    _redistribute._gen_transform_infos.cache_clear()
+
+
+@contextlib.contextmanager
+def card_all_to_alls():
+    """DTensor's ``Shard → Shard`` as one all-to-all
+    (``_dtensor.shard_dim_alltoall``, its fake kernel giving the shapes) on
+    any mesh, as the card runs it: on a CPU mesh torch gathers the whole
+    tensor and keeps a chunk instead (gloo has no all-to-all), which would
+    count the group size times the bytes as an all-gather."""
+    from torch.distributed.tensor import placement_types
+
+    def all_to_all(local, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(local, gather_dim, shard_dim,
+                                                     mesh.get_group(mesh_dim).group_name)
+
+    torch_own = placement_types.shard_dim_alltoall  # what Shard._to_new_shard_dim calls
+    placement_types.shard_dim_alltoall = all_to_all
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = torch_own
 
 
 def placed(meta: torch.Tensor, sharding, mode, device):
@@ -196,26 +240,44 @@ def _step(model, cfg, shape, mode_name, mesh, mode, device):
     return (lambda p, s, t: model.decode_step(p, s, t, constrain=constrain)), (params, state, token)
 
 
-def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, overrides=None,
-               device_type: str = "cuda"):
-    """Build and trace one cell. Returns the result record."""
+def _trace(cfg, shape, mode_name, multi_pod, device_type, rank):
+    """One rank's count of a cell: `opcount.analyze`'s record and the
+    mesh's size."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    cfg = get_config(arch)
-    if overrides:
-        cfg = dataclasses.replace(cfg, **overrides)
-    shape = SHAPES[shape_name]
     model = build_model(cfg)
-    mode_name = _mode_for(shape)
-    with fake_world(multi_pod, device_type) as mesh:
+    with fake_world(multi_pod, device_type, rank) as mesh:
         fake = FakeTensorMode(allow_non_fake_inputs=True)
         step, args = _step(model, cfg, shape, mode_name, mesh, fake, device_type)
         analysis = opcount.analyze(step, *args, fake_mode=fake)
         n_dev = mesh.size()
     del analysis["out"]
+    terms = roofline(analysis["flops"], analysis["bytes_accessed"],
+                     analysis["collectives"]["total_bytes"], peak_flops=peak_for(cfg.dtype))
+    analysis["roofline"] = terms.to_dict()
+    return analysis, n_dev
+
+
+def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, overrides=None,
+               device_type: str = "cuda"):
+    """Build and trace one cell. Returns the result record: rank 0's
+    counts for a train or prefill cell (every rank runs the same work);
+    a decode cell is traced as rank 0 and as the mesh's last rank (a
+    cache split along its sequence holds a windowed layer's live
+    positions on the last ranks), and the record is the slower rank's
+    (``rank``), with both ranks' counts under ``ranks``."""
+    cfg = get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    shape = SHAPES[shape_name]
+    mode_name = _mode_for(shape)
+    world = 512 if multi_pod else 256
+    ranks = (0, world - 1) if shape.kind == "decode" else (0,)
+    traced = {r: _trace(cfg, shape, mode_name, multi_pod, device_type, r) for r in ranks}
+    rank = max(ranks, key=lambda r: traced[r][0]["roofline"]["bound_s"])  # the first of equals
+    analysis, n_dev = traced[rank]
     coll = analysis["collectives"]
     flops_dev, bytes_dev = analysis["flops"], analysis["bytes_accessed"]
-    terms = roofline(flops_dev, bytes_dev, coll["total_bytes"], peak_flops=peak_for(cfg.dtype))
     mf = model_flops(cfg, shape, n_dev)
     useful = mf["model_flops_per_device"] / flops_dev if flops_dev else 0.0
     return {
@@ -225,17 +287,22 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool, overrides=None,
         "n_devices": int(n_dev),
         "mode": mode_name,
         "status": "ok",
-        "compile_seconds": analysis["trace_seconds"],
+        "compile_seconds": sum(a["trace_seconds"] for a, _ in traced.values()),
         "cost_analysis_raw": {"flops": flops_dev, "bytes accessed": bytes_dev,
                               "ops": float(analysis["n_ops"])},
         "memory_analysis": analysis["memory_analysis"],
         "collectives": coll,
         "op_histogram": analysis["op_histogram"],
         "dot_flops_by_shape": analysis["dot_flops_by_shape"],
-        "roofline": terms.to_dict(),
+        "roofline": analysis["roofline"],
         "model_flops": mf,
         "useful_flops_ratio": useful,
         "overrides": overrides or {},
+        "rank": rank,
+        "ranks": {str(r): {"flops": a["flops"], "bytes_accessed": a["bytes_accessed"],
+                           "collectives": a["collectives"], "roofline": a["roofline"],
+                           "trace_seconds": a["trace_seconds"]}
+                  for r, (a, _) in traced.items()},
     }
 
 
@@ -275,7 +342,8 @@ def run_cell(arch, shape_name, multi_pod, out_dir: Path, overrides=None, tag="",
             f"[ok] {arch} × {shape_name} × {rec['mesh']}: "
             f"compute {r['compute_s']:.3e}s memory {r['memory_s']:.3e}s "
             f"collective {r['collective_s']:.3e}s dominant={r['dominant']} "
-            f"(trace {rec['compile_seconds']:.0f}s)", flush=True
+            f"(rank {rec['rank']} of {sorted(map(int, rec['ranks']))}; "
+            f"trace {rec['compile_seconds']:.0f}s)", flush=True
         )
     # per-cell survey: one arch×shape failing must not sink the sweep
     except Exception as e:  # repro-lint: disable=hygiene-broad-except — survey cell records FAIL + traceback

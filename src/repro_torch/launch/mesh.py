@@ -16,14 +16,16 @@ tensors when every rank on a host has a card of its own, and gloo when
 ranks share a card (NCCL refuses two ranks on one device). Gloo's
 functional all-gather on CUDA tensors, which DTensor's ``Shard →
 Replicate`` runs, crashes the process (SIGSEGV, torch 2.11 on the H100),
-and its reduce-scatter goes through host memory; ranks that share
-a card run both collectives through each other's device buffers instead
+its reduce-scatter goes through host memory, and it has no all-to-all
+on CUDA tensors (DTensor's ``Shard → Shard``); ranks that share a card
+run these collectives through each other's device buffers instead
 (`exchange_through_peer_buffers`, CUDA IPC), so the ranks' data never
 leaves the card.
 """
 from __future__ import annotations
 
 import collections
+import math
 import os
 from datetime import timedelta
 
@@ -111,26 +113,34 @@ class _PeerBuffers:
                 os.unlink(path)
         self.capacity = cap
 
-    def publish(self, x: torch.Tensor):
-        """Every rank's ``x`` (the same shape and dtype on each), in group
-        rank order, as views of the ranks' slots."""
+    def publish(self, x: torch.Tensor, numels=None):
+        """Every rank's ``x`` in group rank order, as views of the ranks'
+        slots: of ``x``'s shape (the same shape and dtype on each rank),
+        or, given ``numels`` (every rank's element count, the same list on
+        each rank), flat of ``numels[r]`` elements for rank r."""
         n = x.numel() * x.element_size()
-        if not self.mine or n > self.capacity:
-            self._grow(max(n, 1))
+        most = n if numels is None else max(numels) * x.element_size()
+        if not self.mine or most > self.capacity:
+            self._grow(max(most, 1))
         slot = self.calls % 2
         self.calls += 1
         self.mine[slot][:n].copy_(x.contiguous().reshape(-1).view(torch.uint8))
         self._wait_for_group()
-        return [p[slot][:n].view(x.dtype).view(x.shape) for p in self.peers]
+        if numels is None:
+            return [p[slot][:n].view(x.dtype).view(x.shape) for p in self.peers]
+        return [p[slot][:k * x.element_size()].view(x.dtype) for p, k in zip(self.peers, numels)]
 
 
-def _peer_buffers(group_name: str, device: torch.device) -> _PeerBuffers:
+def _peer_buffers(group, device: torch.device) -> _PeerBuffers:
+    """The exchange of ``group`` (a process group or its name)."""
     from torch.distributed.distributed_c10d import _resolve_process_group
 
-    group = _resolve_process_group(group_name)
-    ex = _exchanges.get(group_name)
+    if isinstance(group, str):
+        group = _resolve_process_group(group)
+    ex = _exchanges.get(group.group_name)
     if ex is None or ex.group is not group:  # a name of an earlier world is reused
-        ex = _exchanges[group_name] = _PeerBuffers(group, device, _exchange_libs[device.type][1])
+        ex = _exchanges[group.group_name] = _PeerBuffers(group, device,
+                                                         _exchange_libs[device.type][1])
     return ex
 
 
@@ -162,11 +172,41 @@ def _exchanged_reduce_scatter(tensor, reduce_op, group_size, group_name):
     return out.div_(group_size) if reduce_op == "avg" else out
 
 
+def _exchanged_all_to_all(tensor, output_split_sizes, input_split_sizes, group_name):
+    """``all_to_all_single``: rank r's rows ``input_split_sizes[j]`` go to
+    rank j, in rank order (equal splits where the sizes are empty). Every
+    rank's split sizes are exchanged first, so each knows where its rows
+    lie in a peer's input."""
+    ex = _peer_buffers(group_name, tensor.device)
+    g, row = ex.size, math.prod(tensor.shape[1:])
+    mine = list(input_split_sizes) or [tensor.shape[0] // g] * g
+    splits = [p.tolist() for p in ex.publish(torch.tensor(mine, device=tensor.device))]
+    parts = ex.publish(tensor, [sum(s) * row for s in splits])
+    out = [part[sum(s[:ex.rank]) * row:sum(s[:ex.rank + 1]) * row]
+           for part, s in zip(parts, splits)]
+    EXCHANGED["all_to_all_single"] += tensor.numel() * tensor.element_size()
+    return torch.cat(out).view(-1, *tensor.shape[1:])
+
+
+def _exchanged_shard_dim_alltoall(tensor, gather_dim, shard_dim, group_name):
+    """DTensor's ``Shard(gather_dim) → Shard(shard_dim)``: every rank's
+    ``tensor`` (one shape on each) cut into group-size chunks along
+    ``shard_dim``; this rank takes its chunk of each, joined along
+    ``gather_dim`` in group rank order."""
+    ex = _peer_buffers(group_name, tensor.device)
+    n = tensor.shape[shard_dim] // ex.size
+    parts = [p.narrow(shard_dim, ex.rank * n, n) for p in ex.publish(tensor)]
+    EXCHANGED["shard_dim_alltoall"] += tensor.numel() * tensor.element_size()
+    return torch.cat(parts, gather_dim)
+
+
 def exchange_through_peer_buffers(device_type: str = "cuda", root=None) -> str:
-    """From now on in this process, the functional all-gather and
-    reduce-scatter (``_c10d_functional.all_gather_into_tensor`` and
-    ``reduce_scatter_tensor``: DTensor's ``Shard → Replicate`` and
-    ``Partial → Shard``) of ``device_type`` tensors run through buffers
+    """From now on in this process, the functional all-gather,
+    reduce-scatter and all-to-all (``_c10d_functional``'s
+    ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
+    ``all_to_all_single``: DTensor's ``Shard → Replicate`` and ``Partial →
+    Shard``) and DTensor's ``Shard → Shard`` (``_dtensor.shard_dim_alltoall``)
+    of ``device_type`` tensors run through buffers
     that every rank of the group maps (`_PeerBuffers`): on CUDA, device
     memory shared by CUDA IPC, for ranks on one host; on the CPU (tests),
     files under ``root`` mapped by every rank and unlinked once mapped.
@@ -175,13 +215,20 @@ def exchange_through_peer_buffers(device_type: str = "cuda", root=None) -> str:
     if device_type not in _exchange_libs:
         if device_type != "cuda" and root is None:
             raise ValueError("on the CPU the peer buffers are files: give their directory, root")
+        key = device_type.upper()
         lib = torch.library.Library("_c10d_functional", "IMPL")
-        lib.impl("all_gather_into_tensor", _exchanged_all_gather, device_type.upper())
-        lib.impl("reduce_scatter_tensor", _exchanged_reduce_scatter, device_type.upper())
-        _exchange_libs[device_type] = (lib, root)
+        lib.impl("all_gather_into_tensor", _exchanged_all_gather, key)
+        lib.impl("reduce_scatter_tensor", _exchanged_reduce_scatter, key)
+        lib.impl("all_to_all_single", _exchanged_all_to_all, key)
+        # DTensor's Shard → Shard calls this op, which reaches the process
+        # group's all-to-all directly, not through all_to_all_single
+        dtensor_lib = torch.library.Library("_dtensor", "IMPL")
+        dtensor_lib.impl("shard_dim_alltoall", _exchanged_shard_dim_alltoall, key)
+        _exchange_libs[device_type] = ((lib, dtensor_lib), root)
     how = "CUDA IPC" if device_type == "cuda" else "mapped files"
-    what = (f"_c10d_functional.all_gather_into_tensor and reduce_scatter_tensor on {device_type} "
-            f"tensors, through the ranks' buffers ({how})")
+    what = (f"_c10d_functional.all_gather_into_tensor, reduce_scatter_tensor and "
+            f"all_to_all_single and _dtensor.shard_dim_alltoall on {device_type} tensors, "
+            f"through the ranks' buffers ({how})")
     print(f"[mesh] exchanged: {what}", flush=True)
     return what
 
@@ -193,12 +240,15 @@ class CollectiveCounter(TorchDispatchMode):
     of the tensors the rank hands in (an all-gather's shard, a
     reduce-scatter's whole input). Functional collectives (DTensor's, in
     ``_c10d_functional``) and ``torch.distributed`` calls (``c10d``) both
-    count; ``wait_tensor`` and the autograd wrapper do not. A DTensor op
+    count, and DTensor's ``Shard → Shard`` (``_dtensor``'s
+    ``shard_dim_alltoall``, which reaches the process group without a
+    functional collective); ``wait_tensor`` and the autograd wrapper do
+    not. A DTensor op
     is let through first (``NotImplemented``), so the collectives its
     redistributes run are seen on their plain tensors, as
     ``CommDebugMode`` sees them."""
 
-    NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d")
+    NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d", "_dtensor")
     NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
 
     def __init__(self):

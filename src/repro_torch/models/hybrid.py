@@ -89,7 +89,7 @@ def _embed(params, cfg, tokens, dtype):
 
 
 def _logits(params, cfg, x, dtype, constrain=_noop_constrain):
-    x = norm_apply(cfg, params["final_norm"], x, dtype)
+    x = constrain(norm_apply(cfg, params["final_norm"], x, dtype), ("batch", None, None))
     return constrain(x @ params["embed"]["w"].to(dtype).T, ("batch", None, "vocab"))
 
 
@@ -238,12 +238,14 @@ def prefill(params, cfg, batch, *, constrain=_noop_constrain):
     S = min(T, cfg.local_window) if cfg.local_window else T
     state = {"pos": torch.tensor(T, dtype=torch.int32, device=tokens.device)}
 
+    def roll(x, shift):  # torch.roll along dim 1 (torch 2.11's DTensor has no rule for roll)
+        return torch.cat([x[:, S - shift:], x[:, :S - shift]], dim=1) if shift else x
+
     def keep(i, kv):
         if cfg.is_attn_layer(i):
             k, v = kv
             shift = T % S  # roll so entry t lands at t % S
-            state[f"layer_{i}"] = {"k": torch.roll(k[:, -S:], shift, dims=1),
-                                   "v": torch.roll(v[:, -S:], shift, dims=1)}
+            state[f"layer_{i}"] = {"k": roll(k[:, -S:], shift), "v": roll(v[:, -S:], shift)}
         else:
             state[f"layer_{i}"] = {"h": kv.h, "conv": kv.conv}
 

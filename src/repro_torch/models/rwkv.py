@@ -103,7 +103,7 @@ def _layers_seq(params, cfg, tokens, constrain=_noop_constrain, layer_specs=None
 
 
 def _logits(params, cfg, x, dtype, constrain=_noop_constrain):
-    x = layernorm(params["final_norm"], x, dtype=dtype)
+    x = constrain(layernorm(params["final_norm"], x, dtype=dtype), ("batch", None, None))
     return constrain(x @ params["unembed"]["w"].to(dtype).T, ("batch", None, "vocab"))
 
 

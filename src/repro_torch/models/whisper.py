@@ -134,7 +134,7 @@ def _cross_attn(lp, x, ck, cv, *, cfg, dtype):
 
 
 def _logits(params, cfg, x, dtype, constrain=_noop_constrain):
-    x = layernorm(params["dec_ln"], x, dtype=dtype)
+    x = constrain(layernorm(params["dec_ln"], x, dtype=dtype), ("batch", None, None))
     logits = _mask_pad_vocab(cfg, x @ params["embed"]["w"].to(dtype).T)
     return constrain(logits, ("batch", None, "vocab"))
 

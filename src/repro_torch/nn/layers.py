@@ -187,7 +187,10 @@ def causal_conv1d(params, x, *, dtype=torch.bfloat16):
     w = params["w"].to(dtype)
     width = w.shape[0]
     x = x.to(dtype)
-    xp = F.pad(x, (0, 0, width - 1, 0))
+    # zero rows ahead of T, as F.pad would give them; zeros of x's own first
+    # row keep x's placements on a mesh (torch 2.11's DTensor pad rule
+    # fails on a channel-split x: an IndexError in its redistribute plan)
+    xp = torch.cat([torch.zeros_like(x[:, :1])] * (width - 1) + [x], dim=1)
     y = torch.zeros_like(x)
     for i in range(width):
         y = y + xp[:, i: i + x.shape[1], :] * w[i]

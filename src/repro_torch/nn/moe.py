@@ -14,6 +14,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.nn.init import ShardSpec, dense_init, split_keys
 
@@ -116,6 +117,12 @@ def moe_apply(params, x, *, n_experts: int, top_k: int, capacity_factor: float =
     expert_out = torch.einsum("GECf,Efd->GECd", h, params["wo"].to(dtype))
     if constrain is not None:
         expert_out = constrain(expert_out, ("batch", "expert", None, None))
+    if isinstance(expert_out, DTensor):
+        # gathered over the experts: the combine einsum flattens (E, C),
+        # which torch 2.11's DTensor refuses with E split
+        expert_out = expert_out.redistribute(
+            expert_out.device_mesh,
+            [Replicate() if p.is_shard(1) else p for p in expert_out.placements])
 
     out = torch.einsum("GgEC,GECd->Ggd", combine, expert_out)
     return out.reshape(B, T, D), router_logits

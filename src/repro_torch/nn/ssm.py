@@ -60,17 +60,35 @@ def rglru_specs():
 
 
 def _rglru_gates(params, x, n_heads):
-    """x: (..., d_rnn) -> (input_gate, rec_gate, log_a) each (..., d_rnn) f32."""
-    from repro_torch.runtime.sharding import whole_if_uneven
+    """x: (..., d_rnn) -> (input_gate, rec_gate, log_a) each (..., d_rnn) f32.
+    Heads that do not divide among the ranks splitting ``x`` are gathered
+    first, and ``x`` is then cut into heads, and the gates' heads merged,
+    on each rank's local tensor: their gradients come back split where
+    the split cuts a head, which torch 2.11's DTensor refuses to regroup
+    (``from_local``'s backward gathers them first)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.runtime.sharding import cuts_groups, whole_if_uneven
 
     shape = x.shape
     H = n_heads
-    x = whole_if_uneven(x, -1, H)  # heads that do not divide among the ranks
-    xb = x.reshape(shape[:-1] + (H, shape[-1] // H)).to(torch.float32)
+    heads = shape[:-1] + (H, shape[-1] // H)
+    uneven = cuts_groups(x, -1, H)
+    x = whole_if_uneven(x, -1, H)
+
+    def regrouped(t, to):  # t viewed as ``to``
+        if not uneven:
+            return t.reshape(to)
+        local = t.to_local()
+        return DTensor.from_local(local.reshape(local.shape[:len(shape) - 1] + to[len(shape) - 1:]),
+                                  t.device_mesh, t.placements, shape=to, run_check=False,
+                                  stride=tuple(math.prod(to[i + 1:]) for i in range(len(to))))
+
+    xb = regrouped(x, heads).to(torch.float32)
     wi = params["w_input_gate"].to(torch.float32)
     wr = params["w_rec_gate"].to(torch.float32)
-    gi = torch.einsum("...hb,hbc->...hc", xb, wi).reshape(shape)
-    gr = torch.einsum("...hb,hbc->...hc", xb, wr).reshape(shape)
+    gi = regrouped(torch.einsum("...hb,hbc->...hc", xb, wi), shape)
+    gr = regrouped(torch.einsum("...hb,hbc->...hc", xb, wr), shape)
     i_gate = torch.sigmoid(gi + params["b_input_gate"].to(torch.float32))
     r_gate = torch.sigmoid(gr + params["b_rec_gate"].to(torch.float32))
     log_a = -RGLRU_C * F.softplus(params["lam"].to(torch.float32)) * r_gate
@@ -270,15 +288,18 @@ def _wkv_step(S, r_t, k_t, v_t, w_t, uh):
 
 def _wkv_scan(rh, kh, vh, wh, uh, S):
     """The wkv recurrence along T of (B, T, H, hd) f32 r, k, v and w from
-    state S: (y (B, T, H, hd), the last S). On DTensors each rank runs
-    the steps on its local rows (`_wkv_scan_local`)."""
+    state S: (y (B, T, H, hd), the last S). Each input is split along T
+    once (the reference's ``moveaxis`` into ``lax.scan``), so the backward
+    stacks each input's gradient once: O(T) bytes, where a select a step
+    would scatter a full (B, T, H, hd) gradient a step. On DTensors each
+    rank runs the steps on its local rows (`_wkv_scan_local`)."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(rh, DTensor):
         return _wkv_scan_local(rh, kh, vh, wh, uh, S)
     ys = []
-    for t in range(rh.shape[1]):
-        y_t, S = _wkv_step(S, rh[:, t], kh[:, t], vh[:, t], wh[:, t], uh)
+    for r_t, k_t, v_t, w_t in zip(*(t.unbind(1) for t in (rh, kh, vh, wh))):
+        y_t, S = _wkv_step(S, r_t, k_t, v_t, w_t, uh)
         ys.append(y_t)
     return torch.stack(ys, dim=1), S
 
@@ -325,10 +346,19 @@ def rwkv_timemix(params, x, x_last, state0, *, n_heads, dtype=torch.bfloat16):
 def rwkv_timemix_step(params, x_t, x_last, state, *, n_heads, dtype=torch.bfloat16):
     """Decode step. x_t: (B, D); state: (B, H, hd, hd) fp32.
     Returns (y, x_last', state')."""
+    from torch.distributed.tensor import DTensor
+
     r, k, v, g, w = _timemix_inputs(params, x_t, x_last, dtype)
     rh, kh, vh = (_headify(t, n_heads).to(torch.float32) for t in (r, k, v))
     uh = _headify(params["u"].to(torch.float32), n_heads)
-    y, state_new = _wkv_step(state.to(torch.float32), rh, kh, vh, _headify(w, n_heads), uh)
+    wh = _headify(w, n_heads)
+    if isinstance(rh, DTensor):  # each rank steps its local heads: torch 2.11's DTensor
+        # refuses the step's einsum with the heads split (it flattens (B, H))
+        y, state_new = _wkv_scan_local(*(t[:, None] for t in (rh, kh, vh, wh)), uh,
+                                       state.to(torch.float32))
+        y = y[:, 0]
+    else:
+        y, state_new = _wkv_step(state.to(torch.float32), rh, kh, vh, wh, uh)
     y = _group_norm(y, params["ln_g"], params["ln_b"])
     y = (y * g.to(torch.float32)).to(dtype)
     return y @ params["wo"].to(dtype), x_t, state_new

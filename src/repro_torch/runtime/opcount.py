@@ -25,7 +25,8 @@ Accounting (the reference's, per op instead of per HLO instruction):
       all-gather          result × (g-1)/g
       all-reduce          2 × result × (g-1)/g
       reduce-scatter      result × (g-1)
-      all-to-all          result × (g-1)/g
+      all-to-all          input × (g-1)/g (``all_to_all_single``, and
+                          DTensor's Shard → Shard, ``shard_dim_alltoall``)
       collective-permute  result
 
 DTensor ops are let through (``NotImplemented``): the mode counts the
@@ -70,14 +71,17 @@ TRAFFIC_FACTOR = {
     "all-to-all": lambda g: (g - 1) / g,
     "collective-permute": lambda g: 1.0,
 }
-# functional collectives (DTensor's) → the HLO name the reference counts by
+# functional collectives (DTensor's) → the HLO name the reference counts by;
+# DTensor's Shard → Shard is ``_dtensor.shard_dim_alltoall``
 COLLECTIVES = {
     "all_gather_into_tensor": "all-gather",
     "all_reduce": "all-reduce",
     "reduce_scatter_tensor": "reduce-scatter",
     "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
 }
-COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd", "c10d_functional")
+COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd", "c10d_functional",
+                         "_dtensor")
 HISTOGRAM = ("fusion", "dot", "convolution", "scatter", "gather", "transpose", "copy")
 
 _DOT_OPS = {"mm", "addmm", "bmm", "baddbmm"}
@@ -194,7 +198,7 @@ def _group_size(args, kwargs, name: str) -> int:
     if name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
         return int(args[-2] if len(args) >= 3 else kwargs["group_size"])
     group = kwargs.get("group_name", args[-1])
-    return _resolve_process_group(group).size()
+    return (_resolve_process_group(group) if isinstance(group, str) else group).size()
 
 
 def dot_flops(name: str, args, out) -> float:
@@ -279,7 +283,8 @@ class OpCounter(TorchDispatchMode):
             if name in COLLECTIVES:
                 kind = COLLECTIVES[name]
                 g = _group_size(args, kwargs, name)
-                size = sum(t.numel() * t.element_size() for t in outs)
+                sized = ins[:1] if kind == "all-to-all" else outs  # an all-to-all: its input
+                size = sum(t.numel() * t.element_size() for t in sized)
                 self.coll_bytes[kind] += size * TRAFFIC_FACTOR[kind](g)
                 self.coll_count[kind] += 1
                 self.bytes += sum(distinct_bytes(t) for t in ins + outs)

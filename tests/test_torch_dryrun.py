@@ -3,6 +3,7 @@ tests/test_system.py's dry-run tests: the mesh factory, a module that
 starts no process group on import, cells run in a child process at the
 reference's world of 512 ranks (``"fake"`` group), and a cell's group
 ending with it."""
+import contextlib
 import json
 import os
 import subprocess
@@ -120,3 +121,67 @@ def test_dryrun_artifacts_complete_if_present():
     for r in recs:
         if r["arch"].startswith("simnet"):
             assert r["collectives"]["total_count"] == 0
+
+
+# recurrentgemma-2b at one layer (an RG-LRU block) and reduced widths: the
+# ops a trace dispatches do not depend on the widths
+HYBRID_REDUCED = dict(n_layers=1, d_model=256, n_heads=4, head_dim=64, d_ff=512, vocab=4096,
+                      rnn_width=256, rnn_heads=4)
+
+
+def test_a_shard_to_shard_counts_as_one_all_to_all(monkeypatch):
+    """The dry run counts DTensor's ``Shard → Shard`` as the card runs it:
+    one ``"all-to-all"`` of its input's bytes per redistribute (each
+    counted where DTensor calls it, ``Shard._to_new_shard_dim``), in a
+    recurrentgemma-2b × train_4k cell on the CPU. Torch's CPU fallback
+    (gloo has no all-to-all) gathers the whole tensor and keeps a chunk:
+    without the dry run's routing the same cell counts as many more
+    all-gathers and no all-to-all, the group's size (16) times the
+    bytes."""
+    from torch.distributed.tensor import placement_types
+
+    from repro_torch.launch import dryrun
+
+    seen = [0]
+    torch_own = placement_types.Shard._to_new_shard_dim
+
+    def counted(self, *args, **kwargs):
+        seen[0] += 1
+        return torch_own(self, *args, **kwargs)
+
+    monkeypatch.setattr(placement_types.Shard, "_to_new_shard_dim", counted)
+    card = dryrun.lower_cell("recurrentgemma-2b", "train_4k", multi_pod=False,
+                             overrides=HYBRID_REDUCED, device_type="cpu")
+    n = seen[0]
+    monkeypatch.setattr(dryrun, "card_all_to_alls", contextlib.nullcontext)
+    fallback = dryrun.lower_cell("recurrentgemma-2b", "train_4k", multi_pod=False,
+                                 overrides=HYBRID_REDUCED, device_type="cpu")
+    assert n > 0 and seen[0] == 2 * n
+    count, moved = card["collectives"]["count_by_op"], card["collectives"]["bytes_by_op"]
+    f_count, f_moved = fallback["collectives"]["count_by_op"], fallback["collectives"]["bytes_by_op"]
+    assert count["all-to-all"] == n and "all-to-all" not in f_count
+    assert f_count["all-gather"] - count["all-gather"] == n
+    assert f_moved["all-gather"] - moved["all-gather"] == 16 * moved["all-to-all"]
+    for k in ("reduce-scatter", "all-reduce"):
+        assert count[k] == f_count[k] and moved[k] == f_moved[k], k
+    assert card["rank"] == 0 and set(card["ranks"]) == {"0"}  # a train cell: one trace
+
+
+def test_a_decode_cell_is_taken_from_its_slower_rank():
+    """gemma3-4b × decode_32k at 6 layers (five windowed, one global) on
+    the pod mesh: traced as rank 0 and as rank 255. The caches are split
+    along their sequence, so a windowed layer's live positions lie on the
+    last rank: it reads more, and the record (its counts, its roofline)
+    is that rank's, named in ``rank``."""
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.lower_cell("gemma3-4b", "decode_32k", multi_pod=False,
+                            overrides=dict(n_layers=6), device_type="cpu")
+    first, last = rec["ranks"]["0"], rec["ranks"]["255"]
+    assert set(rec["ranks"]) == {"0", "255"} and rec["rank"] == 255
+    assert last["bytes_accessed"] > first["bytes_accessed"] and last["flops"] > first["flops"]
+    assert rec["roofline"] == last["roofline"]
+    assert rec["roofline"]["bound_s"] > first["roofline"]["bound_s"]
+    assert rec["cost_analysis_raw"]["bytes accessed"] == last["bytes_accessed"]
+    assert rec["compile_seconds"] == first["trace_seconds"] + last["trace_seconds"]
+    assert not dist.is_initialized()

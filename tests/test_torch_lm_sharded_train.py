@@ -39,6 +39,7 @@ reference's quirk). Counted: a train step runs no collective on a
 others (the sequence-parallel ``seq`` gathers and partial sums, the
 vocab-sharded embedding and cross-entropy, the norm).
 """
+import collections
 import dataclasses
 import faulthandler
 import multiprocessing
@@ -398,13 +399,41 @@ def _staged_rank(rank, init, root, queue):
         grown = [sh.place(x, mesh, (Replicate(), Shard(0))).full_tensor()
                  for x in (x[:64], x)]
         ops = torch.ops._c10d_functional
-        summed = ops.wait_tensor(ops.reduce_scatter_tensor(x, "sum", 2,
-                                                           mesh["model"].get_group().group_name))
-        out = (plain, staged, dict(mesh_mod.EXCHANGED), grown, summed, os.listdir(root))
+        group = mesh["model"].get_group().group_name
+        summed = ops.wait_tensor(ops.reduce_scatter_tensor(x, "sum", 2, group))
+        out = (plain, staged, dict(mesh_mod.EXCHANGED), grown, summed, os.listdir(root),
+               _all_to_alls(rank, group))
         mesh_mod.close_peer_buffers()
     finally:
         dist.destroy_process_group()
     queue.put((rank, _plain(out)))
+
+
+# the all-to-alls of `_all_to_alls`: rank r's input rows and how it splits
+# them between the ranks (equal: empty sizes)
+A2A_ROWS, A2A_SPLITS = (4, 7), ((1, 3), (2, 5))
+
+
+def _a2a_input(rank, rows, cols=3):
+    return torch.arange(rows * cols, dtype=torch.float32).view(rows, cols) + 100 * (rank + 1)
+
+
+def _all_to_alls(rank, group):
+    """What two ranks' all-to-alls give through the peer buffers:
+    ``all_to_all_single`` with equal and unequal splits and
+    ``_dtensor.shard_dim_alltoall`` (DTensor's ``Shard(0) → Shard(1)``),
+    with the calls `CollectiveCounter` counts and the bytes `EXCHANGED`
+    adds."""
+    ops = torch.ops._c10d_functional
+    before = collections.Counter(mesh_mod.EXCHANGED)
+    with mesh_mod.CollectiveCounter() as counter:
+        equal = ops.wait_tensor(ops.all_to_all_single(_a2a_input(rank, 8), [], [], group))
+        outs = [s[rank] for s in A2A_SPLITS]
+        unequal = ops.wait_tensor(ops.all_to_all_single(_a2a_input(rank, A2A_ROWS[rank]), outs,
+                                                        list(A2A_SPLITS[rank]), group))
+        moved = torch.ops._dtensor.shard_dim_alltoall(_a2a_input(rank, 4, 6), 0, 1, group)
+    exchanged = dict(collections.Counter(mesh_mod.EXCHANGED) - before)
+    return equal, unequal, moved, dict(counter.calls), dict(counter.bytes), exchanged
 
 
 def test_the_all_gather_staged_through_host_gives_the_same_step(tmp_path):
@@ -413,8 +442,10 @@ def test_the_all_gather_staged_through_host_gives_the_same_step(tmp_path):
     here on CPU tensors through buffers in host memory: the same
     collectives and metrics bit for bit (a sum of two addends is the same
     in either order), the bytes counted, buffers grown when a collective
-    outgrows them, no file left behind; and the backend each layout of
-    ranks gets."""
+    outgrows them, no file left behind; the all-to-alls (equal and
+    unequal splits, and DTensor's ``Shard → Shard``) equal what chunking
+    and joining the ranks' inputs gives, counted by `CollectiveCounter`
+    and in `EXCHANGED`; and the backend each layout of ranks gets."""
     assert mesh_mod.rank_backend("cpu", 4) == "gloo"
     assert mesh_mod.rank_backend("cuda", 2, n_cards=1) == "cpu:gloo,cuda:gloo"
     assert mesh_mod.rank_backend("cuda", 4, n_cards=4) == "cpu:gloo,cuda:nccl"
@@ -443,8 +474,21 @@ def test_the_all_gather_staged_through_host_gives_the_same_step(tmp_path):
             os.environ["OMP_NUM_THREADS"] = threads
     assert all(p.exitcode == 0 for p in procs)
     x = torch.arange(4096, dtype=torch.float32)
-    for rank, ((calls, metrics), (s_calls, s_metrics), moved, grown, summed, left) in got.items():
+    for rank, ((calls, metrics), (s_calls, s_metrics), moved, grown, summed, left,
+               a2a) in got.items():
         assert calls == s_calls and metrics == s_metrics, rank
+        equal, unequal, sdim, a2a_calls, a2a_bytes, a2a_moved = a2a
+        assert np.array_equal(equal, torch.cat([_a2a_input(r, 8).chunk(2)[rank]
+                                                for r in range(2)]).numpy())
+        assert np.array_equal(unequal, torch.cat([
+            _a2a_input(r, A2A_ROWS[r]).split(A2A_SPLITS[r])[rank] for r in range(2)]).numpy())
+        assert np.array_equal(sdim, torch.cat([_a2a_input(r, 4, 6).chunk(2, dim=1)[rank]
+                                               for r in range(2)], dim=0).numpy())
+        sent = [8 * 3 * 4, A2A_ROWS[rank] * 3 * 4, 4 * 6 * 4]
+        assert a2a_calls == {"all_to_all_single": 2, "shard_dim_alltoall": 1}, rank
+        assert a2a_bytes == {"all_to_all_single": sent[0] + sent[1],
+                             "shard_dim_alltoall": sent[2]}, rank
+        assert a2a_moved == a2a_bytes, rank
         assert moved["all_gather_into_tensor"] > 0 and moved["reduce_scatter_tensor"] > 0, rank
         assert np.array_equal(grown[0], torch.cat([x[:32], 2 * x[32:64]]).numpy())
         assert np.array_equal(grown[1], torch.cat([x[:2048], 2 * x[2048:]]).numpy())

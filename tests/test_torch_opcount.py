@@ -378,6 +378,27 @@ def test_a_loop_on_shape_only_tensors_counts_one_step_times_its_trips():
     assert got["dot_flops_by_shape"] == want["dot_flops_by_shape"]
 
 
+def test_the_wkv_backward_moves_bytes_linear_in_T():
+    """rwkv's wkv scan backward at T and 2T: each input's gradient is
+    stacked once, so the counted bytes at most 2.2 times (a select a step
+    would scatter a full (B, T, H, hd) gradient a step: 3.4-3.8 times at
+    these lengths)."""
+    from repro_torch.nn import ssm
+
+    B, H, hd = 2, 2, 8
+
+    def backward_bytes(T):
+        g = torch.Generator().manual_seed(0)
+        ins = [torch.randn(B, T, H, hd, generator=g, requires_grad=True) for _ in range(4)]
+        u = torch.randn(H, hd, generator=g, requires_grad=True)
+        y, last = ssm._wkv_scan(*ins, u, torch.zeros(B, H, hd, hd))
+        loss = y.sum() + last.sum()
+        return analyze(lambda: torch.autograd.grad(loss, ins + [u]))["bytes_accessed"]
+
+    for T in (32, 64):
+        assert backward_bytes(2 * T) <= 2.2 * backward_bytes(T), T
+
+
 def test_live_positions_of_a_shard():
     n = torch.tensor(100)
     assert opcount.live_positions(n, 64, offset=0) == 64
