@@ -5,13 +5,16 @@ Run from the root of a checkout on a machine with the card:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc`` (fused_step K1, cnn_trunk K2, conv2s K3, decode_attn K4) and logs
-each kernel's registers, shared memory and spills; holds each against its
-plain PyTorch version on the card at its path's shapes (and K1 against K2
-bit for bit on the input K1 assembles, at 1024 and 128 lanes, where K1 and
-K2 are also timed); and drives the paths that run them, counting the
-launches each makes:
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+``nvcc`` (fused_step K1, cnn_trunk K2, conv2s K3, decode_attn K4, and
+rwkv6's wkv recurrence, wkv_fwd and wkv_bwd, which replace no Pallas
+kernel but the reference's ``lax.scan``) and logs each kernel's
+registers, shared memory and spills; holds each against its plain
+PyTorch version on the card at its path's shapes (and K1 against K2 bit
+for bit on the input K1 assembles, at 1024 and 128 lanes, where K1 and K2
+are also timed; the wkv pair at rwkv6-1.6b's training and prefill shapes,
+phase [3c]); and drives the paths that run them, counting the launches
+each makes:
 
 - the SimNet simulator: teacher-forced exactness, then a pack of
   C3-predicted workloads, its params loaded from a ``PredictorArtifact``
@@ -134,13 +137,21 @@ launches each makes:
   reduced width in f32, one sharded train step and a sharded prefill and
   decode each held to one rank on the card (every all-to-all through the
   peer buffers; rwkv6's run some); (c) rwkv6-1.6b trained at full width,
-  cut to 2 of 24 layers, on one card for 3 steps of 4 x 1024 tokens (its
-  wkv loop's backward at O(T)), and one layer's step counted by
-  ``runtime.opcount``.
+  all 24 layers, on one card for 3 steps of 4 x 1024 tokens (its wkv
+  recurrence the CUDA kernels, their launches counted), and one layer's
+  step counted by ``runtime.opcount``.
 
-``python3 chip_smoke.py --only 18`` (or ``17``, ``17,18``) runs the
-named phases alone after the builds ([18] after [12]'s recurrentgemma-2b
-run, for its tokens) and prints no result line.
+Every profiled window ([6], [7], [12], [13], [15]) is the active step of
+a profiler session after a warm-up step (a graph window's graph replayed
+once), CUPTI kept attached between sessions, and says whether its trace
+is whole: every kernel that its CUDA calls launched traced (a graph
+launch counting the graph's kernel nodes), and its copies. A window that
+is not, in [7] and [12], is taken again, up to three sessions (ROADMAP
+F12), and their K4 gates read the first whole take.
+
+``python3 chip_smoke.py --only 18`` (or ``3c``, ``12``, ``17``, ``12,17,18``)
+runs the named phases alone after the builds ([18] after [12]'s
+recurrentgemma-2b run, for its tokens) and prints no result line.
 
 Any failed check raises, so the exit code is non-zero. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -154,6 +165,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import math
 import os
 import re
 import subprocess
@@ -176,7 +188,9 @@ PRED_BENCHES = ("mlb_stream", "mlb_compute", "mlb_branchy", "mlb_mixed",
                 "sim_chase", "sim_loop", "sim_branchy_hard", "sim_phased")
 PRED_LANES, PRED_STEPS = 128, 256  # per workload: 8 x 128 = 1024 live lanes
 OTHER_KINDS = ("fc2", "fc3", "c1", "rb7", "lstm2", "tx6")  # c3 is the main path's
-KIND_LANES, KIND_CPU_LANES = 16, 2  # phase [9]: lanes a workload, on the card / held to the CPU
+# phase [9]: lanes a workload, on the card / held to the CPU, and the steps
+# a lane (PRED_STEPS cut to 128 for the script's time)
+KIND_LANES, KIND_CPU_LANES, KIND_STEPS = 16, 2, 128
 LSTM_RTOL = 2e-5  # cuDNN's fused LSTM vs the step-by-step cells (f32, other sum order)
 # phase [10]: the dataset takes the pack's lane split (128 lanes of 256
 # steps a workload: 8 x 256 eager steps, where the reference's default of
@@ -208,6 +222,17 @@ LM_ARCH = "gemma3-4b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 8, 2048, 64  # requests, prompt tokens, decode steps
 LM_CACHE = 2112  # prompt + steps
 LM_PROFILE_STEPS = 8
+# the profiler: idle host time after each session's warm-up step and after
+# the work profiled, and the sessions a window that a K4 gate reads ([7],
+# [12]) may take to get a whole trace (a retake of [13]'s 3 train steps
+# cost ~50 s); the CUDA calls that launch kernels, and copies or memsets
+PROFILE_PAD_S, PROFILE_TAKES = 0.2, 3
+PROFILE_KERNEL_CALLS = r"^(cudaLaunchKernel|cudaLaunchCooperativeKernel|cuLaunchKernel|cuLaunchCooperativeKernel)"
+PROFILE_COPY_CALLS = r"^(cudaMemcpy|cuMemcpy|cudaMemset|cuMemset)"
+# a copy or memset in the trace: a DMA operation ("Memcpy DtoD (Device ->
+# Device)", "Memset (Device)") or CUDA's own kernel for a graph's copy
+# node ("memcpy32_post")
+PROFILE_COPY_OPS = r"^(Memcpy|Memset|memcpy|memset)"
 # K4 vs plain, (rtol, atol): both compute in f32 and differ in summation
 # order only. f32: 1e-5. bf16: the outputs are rounded to bf16 (8
 # significant bits), and another sum order can move a value across a
@@ -268,11 +293,12 @@ TRAIN_EXACT_STEPS, TRAIN_EXACT_ACCUM, TRAIN_EXACT_BATCH, TRAIN_EXACT_SEQ = 3, 2,
 TRAIN_EXACT_LR, TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-3, 1e-5, 1e-4
 # (c) tinyllama-1.1b at full width: bf16 compute on f32 masters, remat,
 # the config's accum_steps 2, through launch.train.train; lr 3e-4 with
-# train()'s schedule (warmup steps // 10 = 2, cosine to 20); 3 more steps
+# train()'s schedule (warmup steps // 10 = 1, cosine to 14; 20 steps cut
+# to 14 for the script's time); 3 more steps
 # profiled; (d) the trained model decodes 8 greedy steps with K4, its
 # first step held to the plain path as phase [12]'s are
 LM_TRAIN_ARCH = "tinyllama-1.1b"
-LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_LR = 8, 2048, 20, 3e-4
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_LR = 8, 2048, 14, 3e-4
 LM_TRAIN_PROFILE_STEPS, LM_TRAIN_DECODE_PROMPT, LM_TRAIN_DECODE_STEPS = 3, 64, 8
 PEAK_BF16_FLOPS = 989.4e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 # phase [15]: sharded LM training, [13](c)'s configuration (tinyllama-1.1b
@@ -296,14 +322,14 @@ SHARD_LOSS_RTOL, SHARD_NORM_RTOL, SHARD_REDUCED_RTOL = 1e-3, 1e-2, 1e-5
 # equal, logits within EXACT_TOL); (c) decode_long: batch 1, a seeded
 # cache of SHARD_LONG_SEQ positions (half a rank) at SHARD_LONG_POS, no
 # prefill (the plain prefill's logits would take over 30 GB a layer at
-# 32k), SHARD_LONG_STEPS steps (16 cut to 8 for the script's time);
+# 32k), SHARD_LONG_STEPS steps (16 cut to 4 for the script's time);
 # first-step logits within FULL_TOL of one
 # rank's unsharded K4 decode
-SHARD_LONG_SEQ, SHARD_LONG_POS, SHARD_LONG_STEPS = 32768, 32000, 8
-# (a)'s greedy steps: [7]'s 64 cut to 8 for the script's time (each eager
+SHARD_LONG_SEQ, SHARD_LONG_POS, SHARD_LONG_STEPS = 32768, 32000, 4
+# (a)'s greedy steps: [7]'s 64 cut to 4 for the script's time (each eager
 # step ~0.65-0.95 s, host-bound); the follower's wait at the rendezvous covers
 # [15], which runs after the follower starts
-SHARD_LM_STEPS, SHARD_DECODE_TIMEOUT_S = 8, 900
+SHARD_LM_STEPS, SHARD_DECODE_TIMEOUT_S = 4, 900
 # phase [17]: the dry run and the roofline. (a) the cells a child process
 # traces (arch, shape, multi-pod), within DRYRUN_TIMEOUT_S; (b) a step's
 # roofline share, its counted bound over its measured time, is at most
@@ -330,13 +356,12 @@ DRYRUN_TIMEOUT_S, SHARE_MAX = 300, 1.05
 # SHARD_FAMILY_STEPS sharded decode steps from FAMILY_EXACT_PROMPT-token
 # prompts (tokens equal, logits within SHARD_FAMILY_LOGIT_TOL). (c)
 # rwkv6-1.6b trained at full width on one card through launch.train.train
-# (bf16 on f32 masters, remat, accum_steps 2): RWKV_TRAIN_STEPS steps of
-# RWKV_TRAIN_BATCH x RWKV_TRAIN_SEQ tokens at RWKV_TRAIN_LR, cut to
-# RWKV_TRAIN_LAYERS of 24 layers for the script's time (the wkv loop is
-# host-bound: ~100 s a step at 24 layers on the H100; lr 1e-3 made the
-# full-width loss jump from 11.5 to 22.3 in one step); one layer's step at
-# RWKV_COUNT_SEQ counted by runtime.opcount (the counter runs in Python
-# for each op: ~600k ops at seq 1024)
+# (bf16 on f32 masters, remat, accum_steps 2) at all RWKV_TRAIN_LAYERS
+# layers, its wkv recurrence the CUDA kernels (forward and backward):
+# RWKV_TRAIN_STEPS steps of RWKV_TRAIN_BATCH x RWKV_TRAIN_SEQ tokens at
+# RWKV_TRAIN_LR (lr 1e-3 made the full-width loss jump from 11.5 to 22.3 in
+# one step); one layer's step at RWKV_COUNT_SEQ counted by runtime.opcount
+# (the counter runs in Python for each op)
 SHARD_HYBRID_ARCH, SHARD_HYBRID_STEPS, SHARD_FAMILY_STEPS = "recurrentgemma-2b", 16, 8
 # (a)'s first-step logits are held to one card in f32 at full width
 # (SHARD_HYBRID_F32_PROMPT-token prompts, within SHARD_HYBRID_F32_TOL x max
@@ -347,13 +372,24 @@ SHARD_HYBRID_F32_PROMPT, SHARD_HYBRID_F32_TOL = 256, 1e-3
 SHARD_FAMILY_LOGIT_TOL = {"hybrid": 1e-4}  # else 1e-5 (the RG-LRU scan sums in another order)
 SHARD_FAMILY_TIMEOUT_S = 600
 RWKV_TRAIN_ARCH, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ, RWKV_TRAIN_STEPS = "rwkv6-1.6b", 4, 1024, 3
-RWKV_TRAIN_LAYERS, RWKV_TRAIN_LR, RWKV_COUNT_SEQ = 2, 1e-4, 256
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_LR, RWKV_COUNT_SEQ = 24, 1e-4, 256
 # device kernels of a train step by name: (kind, regex), first match wins
 TRAIN_KERNEL_KINDS = (("GEMM (cuBLAS)", r"gemm|xmma|nvjet|cutlass"), ("softmax", r"softmax"),
                       ("mask (where)", r"where"), ("cast f32 -> bf16", r"bfloat16_copy"),
                       ("other copies and casts", r"copy"),
                       ("index / gather / scatter", r"index|gather|scatter"),
                       ("reductions", r"reduce"))
+
+
+# phase [3c]: the wkv kernels at rwkv6-1.6b's shapes, (what, B, T, H, hd):
+# its training batch and [12]'s prefill. Kernel vs plain loop: both sum in
+# f32, in other orders and with other multiply-add fusions, through up to
+# 2048 sequential steps whose state and carried gradient grow to ~10^2-10^3;
+# each output and gradient within WKV_TOL of its largest value. The plain
+# loop (T steps of small ops, host-bound) is timed over WKV_PLAIN_ITERS calls
+# at the training shape only
+WKV_SHAPES = (("train", 4, 1024, 32, 64), ("prefill", 8, 2048, 32, 64))
+WKV_TOL, WKV_PLAIN_ITERS = 1e-4, 2
 
 
 def log(*a):
@@ -739,6 +775,107 @@ def k4_shard_phase(torch, dev, cfg, base):
     return out
 
 
+def wkv_inputs(torch, dev, B, T, H, hd, seed):
+    """Seeded inputs of the wkv recurrence, drawn on the card
+    (`torch.Generator`): r, k, v standard normal, w = exp(-exp(x)) with x ~
+    N(-2.5, 1) (decays from ~0.1 to ~0.999), u ~ N(0, 0.5), a nonzero S0,
+    and the gradients gy and g(S_T) a backward takes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    seq, state = (B, T, H, hd), (B, H, hd, hd)
+
+    def normal(shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    r, k, v = normal(seq), normal(seq), normal(seq)
+    w = torch.exp(-torch.exp(normal(seq) - 2.5))
+    return [r, k, v, w, 0.5 * normal((H, hd)), normal(state), normal(seq), normal(state)]
+
+
+def wkv_kernel_phase(torch, dev, smi):
+    """[3c]: the wkv forward and backward kernels at rwkv6-1.6b's training
+    and prefill shapes (WKV_SHAPES), each output and gradient held to the
+    plain loop (`ref.wkv_ref` and its autograd) on the card within WKV_TOL
+    of its largest value, then timed: the kernels over 20 launches, the
+    plain loop (host-bound: T steps of small ops) over WKV_PLAIN_ITERS at
+    the training shape. There, also the public ``ops.wkv`` under autograd
+    with a loss on y alone, as training calls it (no g(S_T)). Returns the
+    two rows of the JSON line (the training shape's)."""
+    from repro_torch.kernels import ops, ref
+
+    rows = {}
+    for what, B, T, H, hd in WKV_SHAPES:
+        r, k, v, w, u, s0, gy, gs = wkv_inputs(torch, dev, B, T, H, hd, SEED + T)
+        ins = (r, k, v, w, u, s0)
+        log(f"[3c] wkv at rwkv6-1.6b's {what} shape: r/k/v/w/y ({B}, {T}, {H}, {hd}), u ({H}, {hd}), "
+            f"S ({B}, {H}, {hd}, {hd}) f32; the state saved every {ops.WKV_CHUNK} steps: "
+            f"{4 * math.prod(ops.wkv_checkpoints_shape(B, T, H, hd)) / 1e6:.1f} MB ({smi})")
+        with torch.no_grad():
+            y, s_last, ckpt = ops._wkv_op(*ins, True)
+            torch.cuda.synchronize()
+            got = ops._wkv_bwd_op(*ins, ckpt, gy, gs)
+            torch.cuda.synchronize()
+        with torch.enable_grad():  # the plain loop and its autograd (kept for the timing)
+            leaves = [t.detach().requires_grad_() for t in ins]
+            want_y, want_s = ref.wkv_ref(*leaves)
+
+        def plain_bwd():
+            return torch.autograd.grad((want_y, want_s), leaves, (gy, gs), retain_graph=True)
+
+        want = plain_bwd()
+        errs = {}
+        for name, a, b in zip(("y", "S_T", "gr", "gk", "gv", "gw", "gu", "gS0"),
+                              (y, s_last, *got), (want_y, want_s, *want)):
+            e, scale = float((a - b).abs().max()), float(b.abs().max())
+            errs[name] = e
+            check(bool(torch.isfinite(a).all()) and a.shape == b.shape and e <= WKV_TOL * scale,
+                  f"wkv {what} {name} {tuple(a.shape)} = the plain loop's within {WKV_TOL} x max "
+                  f"|{name}| {scale:.4g} (max_abs_err {e:.3e}, {e / scale:.2e} of it)")
+        train = what == "train"
+        if train:  # the path training takes: the public op's autograd, a loss on y alone (no g(S_T))
+            a = [t.detach().requires_grad_() for t in ins]
+            before = dict(ops.launches)
+            got_y = torch.autograd.grad(ops.wkv(*a)[0], a, gy)
+            torch.cuda.synchronize()
+            check(all(ops.launches[k] == before[k] + 1 for k in ("wkv_fwd", "wkv_bwd")),
+                  "ops.wkv under autograd launched the forward and the backward kernel once each")
+            want_y_only = torch.autograd.grad(want_y, leaves, gy, retain_graph=True)
+            for name, g, z in zip(("gr", "gk", "gv", "gw", "gu", "gS0"), got_y, want_y_only):
+                e, scale = float((g - z).abs().max()), float(z.abs().max())
+                check(bool(torch.isfinite(g).all()) and e <= WKV_TOL * scale,
+                      f"wkv {what}, ops.wkv's autograd of a loss on y alone: {name} = the plain "
+                      f"loop's within {WKV_TOL} x max |{name}| {scale:.4g} (max_abs_err {e:.3e})")
+            del a, got_y, want_y_only
+        seq_b = B * T * H * hd * 4
+        fwd_bound = bound(5 * seq_b + u.nbytes + 2 * s0.nbytes, 4 * B * T * H * hd * hd)
+        bwd_bound = bound(9 * seq_b + 2 * u.nbytes + 3 * s0.nbytes, 10 * B * T * H * hd * hd)
+        with torch.no_grad():  # training saves the states for the backward; prefill does not
+            fwd_ms = time_ms(torch, lambda: ops._wkv_op(*ins, train))
+            bwd_ms = time_ms(torch, lambda: ops._wkv_bwd_op(*ins, ckpt, gy, gs))
+            # the plain loop (host-bound) is timed at the training shape only
+            plain_fwd = (time_ms(torch, lambda: ref.wkv_ref(*ins), iters=WKV_PLAIN_ITERS, warmup=0)
+                         if train else None)
+        plain_bwd_ms = time_ms(torch, plain_bwd, iters=WKV_PLAIN_ITERS, warmup=0) if train else None
+        del want, want_y, want_s, leaves
+        for name, ms, plain_ms, (b_ms, b_by), keys in (
+                ("wkv_fwd", fwd_ms, plain_fwd, fwd_bound, ("y", "S_T")),
+                ("wkv_bwd", bwd_ms, plain_bwd_ms, bwd_bound, ("gr", "gk", "gv", "gw", "gu", "gS0"))):
+            plain = ("not timed here" if plain_ms is None else
+                     f"{plain_ms:.4f} ms (the loop; its autograd for the backward), {plain_ms / ms:.1f}x "
+                     "slower than the kernel")
+            log(f"  {name} {what}{' (saving the states)' if name == 'wkv_fwd' and train else ''}: kernel "
+                f"{ms:.4f} ms, plain {plain}, library: none (no one PyTorch call computes the "
+                f"recurrence), bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the bound; "
+                f"max_abs_err " + ", ".join(f"{n} {errs[n]:.3e}" for n in keys))
+            if train:
+                rows[name] = dict(name=name, route="cuda", source="src/repro_torch/kernels/csrc/wkv.cu",
+                                  replaces="src/repro/nn/ssm.py:238 (jax.lax.scan; no Pallas kernel)",
+                                  max_abs_err=max(errs[n] for n in keys), ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del r, k, v, w, u, s0, gy, gs, ins, y, s_last, ckpt, got
+        torch.cuda.empty_cache()
+    return [rows["wkv_fwd"], rows["wkv_bwd"]]
+
+
 def make_traces(names_and_sizes):
     from repro_torch.core.features import trace_arrays
     from repro_torch.des.o3 import O3Config, O3Simulator
@@ -986,33 +1123,117 @@ def device_rows(prof):
     from torch.autograd import DeviceType
 
     return [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not annotation(e)]
 
 
-def profiled(torch, fn, steps):
-    """Profile one call of ``fn`` (which runs ``steps`` steps on the card):
-    wall, device busy time, device operations and the span between CUDA
-    events around the call, whose part not busy is the gaps between device
-    operations. None if the profiler reports no device time."""
-    from torch.profiler import ProfilerActivity, profile
+def annotation(e):
+    """Whether a device-side event of the trace is a range the profiler
+    marks on the device's timeline (its ``ProfilerStep#``, a
+    ``record_function``), not a device operation."""
+    return bool(getattr(e, "is_user_annotation", False)) or e.key.startswith("ProfilerStep")
+
+
+def graph_device_ops(cuda_graph):
+    """(kernel nodes, memcpy and memset nodes) of a CUDA graph: what one
+    replay runs on the device (`cuGraphGetNodes`, `cuGraphNodeGetType`). A
+    replay runs one kernel a kernel node; CUDA may run a copy node as a DMA
+    operation or as a kernel of its own, one a node or fewer. Raises on a
+    node that may hold others (a child graph, a conditional), which this
+    would not see."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    raw, n = cuda_graph.raw_cuda_graph(), ctypes.c_size_t(0)
+    if lib.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("listing a graph's nodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and lib.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("listing a graph's nodes failed")
+    kinds = {}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if lib.cuGraphNodeGetType(node, ctypes.byref(t)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds[t.value] = kinds.get(t.value, 0) + 1
+    # CUgraphNodeType: kernel 0, memcpy 1, memset 2; host 3, child graph 4,
+    # empty 5, event wait / record 6 / 7, ..., conditional 13
+    if kinds.get(4) or kinds.get(13):
+        raise RuntimeError(f"graph holds child or conditional nodes {kinds}: its device "
+                           "operations are not counted")
+    return kinds.get(0, 0), kinds.get(1, 0) + kinds.get(2, 0)
+
+
+def launched_ops(prof):
+    """(kernels, copies and memsets, graph launches) the trace's CUDA runtime
+    and ``cu*`` calls launched."""
+    kernels = copies = graphs = 0
+    for e in prof.key_averages():
+        if re.match(PROFILE_KERNEL_CALLS, e.key):
+            kernels += e.count
+        elif re.match(PROFILE_COPY_CALLS, e.key):
+            copies += e.count
+        elif e.key in ("cudaGraphLaunch", "cuGraphLaunch"):
+            graphs += e.count
+    return kernels, copies, graphs
+
+
+def profiled(torch, fn, steps, graph_ops=(0, 0), warm=None, takes=1):
+    """Profile one call of ``fn`` (which runs ``steps`` steps on the card)
+    as the active step of a profiler session whose warm-up step runs
+    ``warm`` (the graph that ``fn`` replays, replayed once; by default one
+    small kernel), the host idle PROFILE_PAD_S after each step: wall,
+    device busy time, device operations and the span between CUDA events
+    around the call, whose part not busy is the gaps between device
+    operations; and whether the trace is whole: every kernel that the
+    call's CUDA calls launched traced (a graph launch counting the kernel
+    nodes of ``graph_ops``, `graph_device_ops` of the graph), and a copy or
+    memset for each asked outside a graph and at most one for each copy
+    node of a graph launched. A trace that is not whole (ROADMAP F12) is
+    taken again, in a new session, up to ``takes`` times in all (a gate
+    reads the window: PROFILE_TAKES); the first whole take is returned,
+    else the last. None if the profiler reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        start.record()
-        fn()
-        end.record()
+    for take in range(1, takes + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof)
-    if not rows:
-        return None
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            if warm is None:
+                torch.cuda._sleep(1000)
+            else:
+                warm()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
+        rows = device_rows(prof)
+        if not rows:
+            return None
+        traced = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not annotation(e)]
+        copied = sum(e.count for e in traced if re.match(PROFILE_COPY_OPS, e.key))
+        seen = sum(e.count for e in traced) - copied
+        kernels, copies, graphs = launched_ops(prof)
+        want = kernels + graphs * graph_ops[0]
+        whole = seen == want and copies <= copied <= copies + graphs * graph_ops[1]
+        if whole:
+            break
     busy = sum(r[0] for r in rows)  # one stream: device events do not overlap
     span = start.elapsed_time(end)
     return dict(rows=rows, wall=wall_ms, busy=busy, span=span, steps=steps,
-                ops=sum(r[1] for r in rows) / steps)
+                ops=sum(r[1] for r in rows) / steps, whole=whole, take=take,
+                kernels=(seen, want), copies=(copied, copies))
 
 
 def log_profile(what, p, top=6):
@@ -1020,6 +1241,10 @@ def log_profile(what, p, top=6):
         log(f"  {what}: the profiler reported no device time (not measured)")
         return
     n = p["steps"]
+    seen, want = p["kernels"]
+    log(f"  {what}: the trace is {'whole' if p['whole'] else 'NOT WHOLE (F12)'}, take {p['take']}: "
+        f"{seen} kernels traced of {want} launched, {p['copies'][0]} copies ({p['copies'][1]} asked "
+        f"outside a graph)")
     log(f"  {what} (profiler on): wall {p['wall']:.2f} ms ({p['wall'] / n:.4f} ms/step), device busy "
         f"{p['busy']:.2f} ms ({p['busy'] / n:.4f} ms/step, {100 * p['busy'] / p['wall']:.1f}% of wall), "
         f"{p['ops']:.1f} device operations per step; event span {p['span']:.2f} ms, gaps "
@@ -1055,7 +1280,9 @@ def profile_phase(torch, dev, eng, arrays, steps=32, replays=4):
         prog.run(eng.params, [xs] * replays, rw, lc, lambda state: None)
 
     graph()  # warm
-    log_profile("graph replays", profiled(torch, graph, steps * replays))
+    log_profile("graph replays", profiled(
+        torch, graph, steps * replays, graph_ops=graph_device_ops(prog.graph.graph),
+        warm=lambda: prog.run(eng.params, [xs], rw, lc, lambda state: None)))
 
 
 def tensors(tree):
@@ -1157,13 +1384,16 @@ def lm_phase(torch, dev):
             check(per_step == cfg.n_layers, f"one K4 device kernel a layer and step ({cfg.n_layers})")
 
     st = copy_state(full)
-    p = profiled(torch, lambda: eager_steps(LM_PROFILE_STEPS, st), LM_PROFILE_STEPS)
+    p = profiled(torch, lambda: eager_steps(LM_PROFILE_STEPS, st), LM_PROFILE_STEPS,
+                 takes=PROFILE_TAKES)
     del st
     log_profile(f"profile of {LM_PROFILE_STEPS} eager decode steps", p, top=8)
     k4_share(p)
     with graph.lock:
         graph.load(full, first)
-        p = profiled(torch, lambda: graph.decode(LM_PROFILE_STEPS), LM_PROFILE_STEPS)
+        p = profiled(torch, lambda: graph.decode(LM_PROFILE_STEPS), LM_PROFILE_STEPS,
+                     graph_ops=graph_device_ops(graph.graph.graph), warm=lambda: graph.decode(1),
+                     takes=PROFILE_TAKES)
     log_profile(f"profile of {LM_PROFILE_STEPS} decode-step graph replays", p, top=8)
     k4_share(p)
     return dict(model=model, params=params, full=full, first=first, stream=stream,
@@ -1316,12 +1546,17 @@ def family_phase(torch, dev, arch, layers, prompt):
     batch = family_batch(torch, cfg, dev, LM_BATCH, prompt, SEED)
     extra = "".join(f", {k} {tuple(v.shape)}" for k, v in batch.items() if k != "tokens")
     torch.cuda.reset_peak_memory_stats(dev)
+    wkv_before = ops.launches["wkv_fwd"]
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, state = model.prefill(params, batch)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
+    if cfg.family == "rwkv":
+        wkv = ops.launches["wkv_fwd"] - wkv_before
+        check(wkv == cfg.n_layers, f"the prefill's wkv recurrence ran as the forward kernel, once a layer: "
+              f"{wkv} launches ({cfg.n_layers} layers)")
     vocab = cfg.padded_vocab if cfg.is_encdec else cfg.vocab
     check(tuple(logits.shape) == (LM_BATCH, 1, vocab) and bool(torch.isfinite(logits).all()),
           f"prefill logits finite, shape {tuple(logits.shape)}")
@@ -1378,7 +1613,9 @@ def family_phase(torch, dev, arch, layers, prompt):
     k4_timed, logits0, plain0 = first_step_gates(torch, model, params, full, first, copy_state)
     with graph.lock:
         graph.load(full, first)
-        p = profiled(torch, lambda: graph.decode(LM_PROFILE_STEPS), LM_PROFILE_STEPS)
+        p = profiled(torch, lambda: graph.decode(LM_PROFILE_STEPS), LM_PROFILE_STEPS,
+                     graph_ops=graph_device_ops(graph.graph.graph), warm=lambda: graph.decode(1),
+                     takes=PROFILE_TAKES)
     log_profile(f"profile of {LM_PROFILE_STEPS} decode-step graph replays", p, top=6)
     check(p is not None, "the profiler saw the replays' device time")
     k4_rows = [r for r in p["rows"] if "decode_attn_kernel" in r[2]]
@@ -1777,7 +2014,7 @@ def lm_train_phase(torch, dev, smi):
 def kinds_phase(torch, dev, arrays):
     """Every other predictor kind at full width (its default config, ctx
     64), weights from a seed through a predictor artifact, on the pack's
-    8 workloads x KIND_LANES lanes x PRED_STEPS steps in one chunk: the
+    8 workloads x KIND_LANES lanes x KIND_STEPS steps in one chunk: the
     chunk graph against the eager pass, and a reduced pack on the card
     against the CPU."""
     import numpy as np
@@ -1789,10 +2026,10 @@ def kinds_phase(torch, dev, arrays):
     from repro_torch.kernels import ops
     from repro_torch.serving.simnet_engine import SimNetEngine
 
-    pack = [{k: v[: KIND_LANES * PRED_STEPS] for k, v in a.items()} for a in arrays]
-    small = [{k: v[: KIND_CPU_LANES * PRED_STEPS] for k, v in a.items()} for a in arrays]
+    pack = [{k: v[: KIND_LANES * KIND_STEPS] for k, v in a.items()} for a in arrays]
+    small = [{k: v[: KIND_CPU_LANES * KIND_STEPS] for k, v in a.items()} for a in arrays]
     log(f"[9] predictor kinds at full width: {len(pack)} workloads x {KIND_LANES} lanes x "
-        f"{PRED_STEPS} steps, chunk {PRED_STEPS}, plain PyTorch (the kernels serve c1/c3's "
+        f"{KIND_STEPS} steps, chunk {KIND_STEPS}, plain PyTorch (the kernels serve c1/c3's "
         f"use_kernel only; the lstm runs through cuDNN {torch.backends.cudnn.version()})")
     for kind in OTHER_KINDS:
         pcfg = PredictorConfig(kind=kind)
@@ -1806,16 +2043,16 @@ def kinds_phase(torch, dev, arrays):
               f"{kind}: params through a PredictorArtifact bit for bit")
         eng = SimNetEngine(art.params, art.pcfg, art.sim_cfg, device=dev)
         ops.reset_launches()
-        g = eng.simulate_many(pack, n_lanes=KIND_LANES, chunk=PRED_STEPS, timeit=True)
+        g = eng.simulate_many(pack, n_lanes=KIND_LANES, chunk=KIND_STEPS, timeit=True)
         check(sum(ops.launches.values()) == 0, f"{kind}: no hand-written kernel launched")
         check(np.isfinite(g["workload_cycles"]).all(), f"{kind}: totals finite")
-        e = eager_pass(torch, eng, pack, KIND_LANES, PRED_STEPS)
+        e = eager_pass(torch, eng, pack, KIND_LANES, KIND_STEPS)
         check(np.array_equal(g["workload_cycles"], e["workload_cycles"])
               and np.array_equal(g["workload_overflow"], e["workload_overflow"]),
               f"{kind}: graph totals equal the eager pass bit for bit")
-        card = eng.simulate_many(small, n_lanes=KIND_CPU_LANES, chunk=PRED_STEPS)
+        card = eng.simulate_many(small, n_lanes=KIND_CPU_LANES, chunk=KIND_STEPS)
         cpu = SimNetEngine(on_cpu.params, pcfg, on_cpu.sim_cfg, device="cpu").simulate_many(
-            small, n_lanes=KIND_CPU_LANES, chunk=PRED_STEPS)
+            small, n_lanes=KIND_CPU_LANES, chunk=KIND_STEPS)
         rel = np.abs(card["workload_cycles"] - cpu["workload_cycles"]) / cpu["workload_cycles"]
         check(rel.max() < PRED_RTOL, f"{kind}: reduced pack ({card['n_lanes']} lanes) on the card "
               f"within {PRED_RTOL} of the CPU (max rel diff {rel.max():.3e})")
@@ -1823,7 +2060,7 @@ def kinds_phase(torch, dev, arrays):
             f"{g['throughput_ips']:.1f} vs eager {e['throughput_ips']:.1f} "
             f"({g['throughput_ips'] / e['throughput_ips']:.2f}x); first_call_seconds "
             f"{g['first_call_seconds']:.3f} (eager {e['first_call_seconds']:.3f}); build: "
-            f"{build_log(eng.executable(g['n_lanes'], PRED_STEPS))}")
+            f"{build_log(eng.executable(g['n_lanes'], KIND_STEPS))}")
         log(f"    cycles {g['workload_cycles'].tolist()}")
         if kind == "lstm2":
             state, cur = populated_state(torch, sim, dev, lanes=g["n_lanes"])
@@ -1955,11 +2192,6 @@ def finish_cli(started, timeout):
     return proc.returncode, doc, secs, err[-3000:]
 
 
-def run_cli(args, timeout):
-    """`start_cli`, then `finish_cli`."""
-    return finish_cli(start_cli(args), timeout)
-
-
 def stop_cli(started):
     """Kills a `start_cli` child's session if it still runs."""
     import os
@@ -1981,12 +2213,15 @@ def hist_pcts(snap):
     return f"p50 {snap['p50']:.1f} ms, p99 {snap['p99']:.1f} ms (n={snap['count']})"
 
 
-def serving_phase(torch, dev, pcfg, params, arrays):
+def serving_phase(torch, dev, pcfg, params, arrays, chaos):
     """The serving tier on the card: the `SimNet` session through its
     `SimServe` (K1 on the served path), two resident models of one kind on
     one graph, the HTTP tier, the CLI's ``simulate`` and ``serve --jobs``,
-    a 2-replica fleet and the chaos drill as child processes, and a
-    one-shot ``simulate`` at three chunk sizes."""
+    a 2-replica fleet and the chaos drill (``chaos``, a `start_cli` child
+    started with phase [10]) as child processes, and a one-shot
+    ``simulate`` at three chunk sizes. The CLI children start first and
+    run beside the in-process checks, whose times they share the card and
+    the host with."""
     import threading
 
     import numpy as np
@@ -2008,136 +2243,150 @@ def serving_phase(torch, dev, pcfg, params, arrays):
         art_dir = Path(tmp) / "c3"
         PredictorArtifact(params, pcfg, SimConfig(ctx_len=pcfg.ctx_len), {"seed": SEED}).save(art_dir)
         art = PredictorArtifact.load(art_dir, device=dev)
-        lanes = [PRED_LANES] * len(arrays)
-        chunk = chunk_bucket(max_packed_steps(arrays, lanes), 1024)  # what the service picks
-        direct = SimNetEngine(art.params, art.pcfg, art.sim_cfg, use_kernel=True, device=dev
-                              ).simulate_many(arrays, n_lanes=PRED_LANES, chunk=chunk)
-
-        # -- the session through its service's drain loop, a cold cache
-        sn = SimNet(art, use_kernel=True, background=True, cache=CompileCache(), device=dev)
-        sn.service.max_wait_ms = 50.0  # a window that every submit of the call makes
-        ops.reset_launches()
-        with sn:
-            res = sn.simulate_many(arrays, n_lanes=PRED_LANES)
-            st = sn.stats()
-        served = dict(ops.launches)
-        got = np.asarray([w.total_cycles for w in res])
-        log(f"  SimNet(background=True).simulate_many: throughput_ips={res.throughput_ips:.1f} "
-            f"seconds={res.seconds:.4f} first_call_seconds={res.first_call_seconds:.3f} "
-            f"cache={res.cache}; launches {served}")
-        log(f"  service: jobs_per_batch={st['jobs_per_batch']:.1f} batches={st['batches']} "
-            f"queue_wait_ms {hist_pcts(st['telemetry']['queue_wait_ms'])}, service_ms "
-            f"{hist_pcts(st['telemetry']['service_ms'])}")
-        log(f"  engine direct (chunk {chunk}): throughput_ips={direct['throughput_ips']:.1f} "
-            f"seconds={direct['seconds']:.4f}")
-        check(np.array_equal(got, direct["workload_cycles"]),
-              "served totals equal the engine's direct simulate_many bit for bit")
-        check(served["fused_step"] == direct["n_steps"] > 0 and served["cnn_trunk"] == 0
-              and st["loop_errors"] == 0,
-              f"the served path launched K1 once a step ({served['fused_step']} fused_step launches)")
-
-        # -- two resident models of one kind alternate on one chunk graph
-        other = init_predictor(torch.Generator().manual_seed(SEED + 1), pcfg, dev)
-        two = SimServe(use_kernel=True, device=dev)
-        two.register("a", art)
-        two.register("b", params=other, pcfg=pcfg, sim_cfg=art.sim_cfg)
-        engines = {"a": SimNetEngine(art.params, pcfg, art.sim_cfg, use_kernel=True, device=dev),
-                   "b": SimNetEngine(other, pcfg, art.sim_cfg, use_kernel=True, device=dev)}
-        order, handles = [], []
-        for i in range(3):  # each round: one job a model, drained a then b
-            handles.append({m: two.submit(arrays[i], m, n_lanes=PRED_LANES) for m in "ab"})
-            order += [r.model_id for r in two.drain()]
-        prog = two.registry.get("a").executable(PRED_LANES, chunk)
-        refills = prog.refills
-        log(f"  two residents of one kind, {len(order)} batches {order}: weight-slot refills of "
-            f"their one chunk graph {refills} (the first binding included)")
-        check(order == ["a", "b"] * 3 and refills == len(order)
-              and prog is two.registry.get("b").executable(PRED_LANES, chunk),
-              "two models of one kind share one graph, which refills its weight slots at every turn")
-        same = all(h.result().total_cycles == float(engines[m].simulate_many(
-            [arrays[i]], n_lanes=PRED_LANES, chunk=chunk)["workload_cycles"][0])
-            for i, hs in enumerate(handles) for m, h in hs.items())
-        check(same, "each of their jobs equals its own engine's direct total")
-
-        # -- the HTTP tier: wire arrays from client threads. Each job rides
-        # a batch of its own (max_batch_lanes = its lanes), in-process as
-        # over the wire, so both run the same programs at the same shapes
-        def http_service():
-            serve = SimServe(max_batch_lanes=PRED_LANES, use_kernel=True, device=dev)
-            serve.register("c3", art)
-            return serve
-
-        inproc = http_service()
-        hs = [inproc.submit(a, "c3", n_lanes=PRED_LANES) for a in arrays]
-        inproc.drain()
-        want = [h.result().total_cycles for h in hs]
-        t0 = time.perf_counter()
-        wires = [{k: np.asarray(v).tolist() for k, v in a.items()} for a in arrays]
-        log(f"  wire arrays of {len(wires)} workloads made in {time.perf_counter() - t0:.2f} s")
-        wired, lat, errors = {}, {}, []
-        serve = http_service()
-        with SimServeHTTP(serve) as front:
-            def client(c):
-                try:
-                    for i in range(c, len(wires), HTTP_CLIENTS):
-                        t = time.perf_counter()
-                        code, body = http_request(f"{front.url}/v1/jobs", "POST", {
-                            "trace": wires[i], "model": "c3", "lanes": PRED_LANES, "id": f"w{i}"},
-                            timeout=300)
-                        if code != 202:
-                            raise RuntimeError(f"POST w{i}: {code} {body}")
-                        done = wait_job(front.url, body["job_id"], timeout=300)
-                        lat[i] = (time.perf_counter() - t) * 1e3
-                        wired[i] = done
-                except Exception as e:  # noqa: BLE001 - raised below, on the main thread
-                    errors.append(e)
-
-            t0 = time.perf_counter()
-            threads = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            wall = time.perf_counter() - t0
-            _, hst = http_request(f"{front.url}/v1/stats")
-        serve.stop()
-        if errors or any(t.is_alive() for t in threads):
-            raise RuntimeError(f"HTTP clients failed: {errors}")
-        log(f"  HTTP: {len(wires)} requests from {HTTP_CLIENTS} client threads in {wall:.2f} s = "
-            f"{len(wires) / wall:.2f} requests/s; request latency (post to result) "
-            f"{pcts(list(lat.values()))}; service_ms {hist_pcts(hst['telemetry']['service_ms'])}, "
-            f"jobs_per_batch {hst['jobs_per_batch']:.1f}")
-        check(all(wired[i]["status"] == "done" for i in range(len(wires)))
-              and [wired[i]["result"]["total_cycles"] for i in range(len(wires))] == want,
-              "wire totals equal the in-process submits' bit for bit")
-        log(f"  (a job alone in a {PRED_LANES}-lane batch vs all {len(arrays)} in one "
-            f"{direct['n_lanes']}-lane batch: equal totals for {sum(a == b for a, b in zip(want, got))} "
-            f"of {len(want)} workloads; not a gate)")
-
-        # -- the CLI as child processes. The chaos drill (its own tiny
-        # models) and the 2-replica fleet run beside simulate --use-kernel
-        # and serve --jobs, whose times they share the card with
-        chaos = fleet = None
+        # -- the CLI as child processes, started first: simulate --use-kernel,
+        # serve --jobs and the 2-replica fleet
+        tr_dir = Path(tmp) / "traces"
+        cli_traces = api.generate_traces(CLI_BENCHES, CLI_N, cache_dir=str(tr_dir))
+        jobs = [{"id": f"{m}-{b}", "bench": b, "n": CLI_N, "lanes": CLI_LANES,
+                 **({"model": "c3"} if m == "c3" else {})} for m in ("c3", "tf") for b in CLI_BENCHES]
+        jobs_file = Path(tmp) / "jobs.json"
+        jobs_file.write_text(json.dumps({"models": {"c3": str(art_dir)}, "jobs": jobs}))
+        children = {}
         try:
-            chaos = start_cli(["chaos", "--quick", "--batch-timeout-s", CHAOS_WATCHDOG_S])
-            tr_dir = Path(tmp) / "traces"
-            cli_traces = api.generate_traces(CLI_BENCHES, CLI_N, cache_dir=str(tr_dir))
-            want = SimNet(art, use_kernel=True, device=dev).simulate_many(cli_traces, n_lanes=CLI_LANES)
-            rc, out, secs, err = run_cli(
+            children["simulate"] = start_cli(
                 ["simulate", "--artifact", art_dir, "--use-kernel", "--bench", *CLI_BENCHES,
-                 "-n", CLI_N, "--lanes", CLI_LANES, "--cache-dir", tr_dir], timeout=300)
+                 "-n", CLI_N, "--lanes", CLI_LANES, "--cache-dir", tr_dir])
+            children["serve"] = start_cli(["serve", "--jobs", jobs_file, "--cache-dir", tr_dir])
+            children["fleet"] = start_cli(["fleet", "--replicas", FLEET_REPLICAS, "--jobs", jobs_file,
+                                           "--cache-dir", tr_dir])
+            lanes = [PRED_LANES] * len(arrays)
+            chunk = chunk_bucket(max_packed_steps(arrays, lanes), 1024)  # what the service picks
+            direct = SimNetEngine(art.params, art.pcfg, art.sim_cfg, use_kernel=True, device=dev
+                                  ).simulate_many(arrays, n_lanes=PRED_LANES, chunk=chunk)
+
+            # -- the session through its service's drain loop, a cold cache
+            sn = SimNet(art, use_kernel=True, background=True, cache=CompileCache(), device=dev)
+            sn.service.max_wait_ms = 50.0  # a window that every submit of the call makes
+            ops.reset_launches()
+            with sn:
+                res = sn.simulate_many(arrays, n_lanes=PRED_LANES)
+                st = sn.stats()
+            served = dict(ops.launches)
+            got = np.asarray([w.total_cycles for w in res])
+            log(f"  SimNet(background=True).simulate_many: throughput_ips={res.throughput_ips:.1f} "
+                f"seconds={res.seconds:.4f} first_call_seconds={res.first_call_seconds:.3f} "
+                f"cache={res.cache}; launches {served}")
+            log(f"  service: jobs_per_batch={st['jobs_per_batch']:.1f} batches={st['batches']} "
+                f"queue_wait_ms {hist_pcts(st['telemetry']['queue_wait_ms'])}, service_ms "
+                f"{hist_pcts(st['telemetry']['service_ms'])}")
+            log(f"  engine direct (chunk {chunk}): throughput_ips={direct['throughput_ips']:.1f} "
+                f"seconds={direct['seconds']:.4f}")
+            check(np.array_equal(got, direct["workload_cycles"]),
+                  "served totals equal the engine's direct simulate_many bit for bit")
+            check(served["fused_step"] == direct["n_steps"] > 0 and served["cnn_trunk"] == 0
+                  and st["loop_errors"] == 0,
+                  f"the served path launched K1 once a step ({served['fused_step']} fused_step launches)")
+
+            # -- two resident models of one kind alternate on one chunk graph
+            other = init_predictor(torch.Generator().manual_seed(SEED + 1), pcfg, dev)
+            two = SimServe(use_kernel=True, device=dev)
+            two.register("a", art)
+            two.register("b", params=other, pcfg=pcfg, sim_cfg=art.sim_cfg)
+            engines = {"a": SimNetEngine(art.params, pcfg, art.sim_cfg, use_kernel=True, device=dev),
+                       "b": SimNetEngine(other, pcfg, art.sim_cfg, use_kernel=True, device=dev)}
+            order, handles = [], []
+            for i in range(3):  # each round: one job a model, drained a then b
+                handles.append({m: two.submit(arrays[i], m, n_lanes=PRED_LANES) for m in "ab"})
+                order += [r.model_id for r in two.drain()]
+            prog = two.registry.get("a").executable(PRED_LANES, chunk)
+            refills = prog.refills
+            log(f"  two residents of one kind, {len(order)} batches {order}: weight-slot refills of "
+                f"their one chunk graph {refills} (the first binding included)")
+            check(order == ["a", "b"] * 3 and refills == len(order)
+                  and prog is two.registry.get("b").executable(PRED_LANES, chunk),
+                  "two models of one kind share one graph, which refills its weight slots at every turn")
+            same = all(h.result().total_cycles == float(engines[m].simulate_many(
+                [arrays[i]], n_lanes=PRED_LANES, chunk=chunk)["workload_cycles"][0])
+                for i, hs in enumerate(handles) for m, h in hs.items())
+            check(same, "each of their jobs equals its own engine's direct total")
+
+            # -- the HTTP tier: wire arrays from client threads. Each job rides
+            # a batch of its own (max_batch_lanes = its lanes), in-process as
+            # over the wire, so both run the same programs at the same shapes
+            def http_service():
+                serve = SimServe(max_batch_lanes=PRED_LANES, use_kernel=True, device=dev)
+                serve.register("c3", art)
+                return serve
+
+            inproc = http_service()
+            hs = [inproc.submit(a, "c3", n_lanes=PRED_LANES) for a in arrays]
+            inproc.drain()
+            want = [h.result().total_cycles for h in hs]
+            t0 = time.perf_counter()
+            wires = [{k: np.asarray(v).tolist() for k, v in a.items()} for a in arrays]
+            log(f"  wire arrays of {len(wires)} workloads made in {time.perf_counter() - t0:.2f} s")
+            wired, lat, errors = {}, {}, []
+            serve = http_service()
+            with SimServeHTTP(serve) as front:
+                def client(c):
+                    try:
+                        for i in range(c, len(wires), HTTP_CLIENTS):
+                            t = time.perf_counter()
+                            code, body = http_request(f"{front.url}/v1/jobs", "POST", {
+                                "trace": wires[i], "model": "c3", "lanes": PRED_LANES, "id": f"w{i}"},
+                                timeout=300)
+                            if code != 202:
+                                raise RuntimeError(f"POST w{i}: {code} {body}")
+                            done = wait_job(front.url, body["job_id"], timeout=300)
+                            lat[i] = (time.perf_counter() - t) * 1e3
+                            wired[i] = done
+                    except Exception as e:  # noqa: BLE001 - raised below, on the main thread
+                        errors.append(e)
+
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                wall = time.perf_counter() - t0
+                _, hst = http_request(f"{front.url}/v1/stats")
+            serve.stop()
+            if errors or any(t.is_alive() for t in threads):
+                raise RuntimeError(f"HTTP clients failed: {errors}")
+            log(f"  HTTP: {len(wires)} requests from {HTTP_CLIENTS} client threads in {wall:.2f} s = "
+                f"{len(wires) / wall:.2f} requests/s; request latency (post to result) "
+                f"{pcts(list(lat.values()))}; service_ms {hist_pcts(hst['telemetry']['service_ms'])}, "
+                f"jobs_per_batch {hst['jobs_per_batch']:.1f}")
+            check(all(wired[i]["status"] == "done" for i in range(len(wires)))
+                  and [wired[i]["result"]["total_cycles"] for i in range(len(wires))] == want,
+                  "wire totals equal the in-process submits' bit for bit")
+            log(f"  (a job alone in a {PRED_LANES}-lane batch vs all {len(arrays)} in one "
+                f"{direct['n_lanes']}-lane batch: equal totals for {sum(a == b for a, b in zip(want, got))} "
+                f"of {len(want)} workloads; not a gate)")
+
+            # -- a one-shot simulate (cold cache) at three chunk caps
+            firsts = {}
+            for c in CHUNK_CAPS:
+                one = SimNet(art, use_kernel=True, cache=CompileCache(), device=dev)
+                r = one.simulate(arrays[0], n_lanes=ONESHOT_LANES, chunk=c)
+                warm = one.simulate(arrays[0], n_lanes=ONESHOT_LANES, chunk=c)
+                firsts[c] = r.total_cycles
+                log(f"  one-shot simulate, {ONESHOT_LANES} lanes x {len(arrays[0]['feat']) // ONESHOT_LANES} "
+                    f"steps, chunk {c}: first_call_seconds {r.first_call_seconds:.3f} (build "
+                    f"{r.cache['compile_seconds']:.3f} s), throughput_ips {r.throughput_ips:.1f}; warm call "
+                    f"{warm.first_call_seconds:.3f} s, throughput_ips {warm.throughput_ips:.1f}")
+            check(len(set(firsts.values())) == 1, f"the same totals at every chunk {firsts}")
+
+            # -- the children's results
+            want = SimNet(art, use_kernel=True, device=dev).simulate_many(cli_traces, n_lanes=CLI_LANES)
+            rc, out, secs, err = finish_cli(children["simulate"], timeout=300)
             check(rc == 0 and out is not None, f"python -m repro_torch simulate --use-kernel exits 0 "
                   f"in {secs:.1f} s {err if rc else ''}")
             log(f"  CLI simulate: throughput_ips={out['result']['throughput_ips']:.1f} "
                 f"first_call_seconds={out['result']['first_call_seconds']:.3f} cache {out['result']['cache']}")
             check([w["total_cycles"] for w in out["result"]["workloads"]] == [w.total_cycles for w in want],
                   f"CLI simulate totals equal in-process {[w.total_cycles for w in want]}")
-            jobs = [{"id": f"{m}-{b}", "bench": b, "n": CLI_N, "lanes": CLI_LANES,
-                     **({"model": "c3"} if m == "c3" else {})} for m in ("c3", "tf") for b in CLI_BENCHES]
-            jobs_file = Path(tmp) / "jobs.json"
-            jobs_file.write_text(json.dumps({"models": {"c3": str(art_dir)}, "jobs": jobs}))
-            fleet = start_cli(["fleet", "--replicas", FLEET_REPLICAS, "--jobs", jobs_file,
-                               "--cache-dir", tr_dir])
             sync = SimServe(device=dev)
             sync.register("c3", art_dir)
             names = dict(zip(CLI_BENCHES, cli_traces))
@@ -2145,16 +2394,14 @@ def serving_phase(torch, dev, pcfg, params, arrays):
                   for j in jobs]
             sync.drain()
             want = [(j["id"], h.result().total_cycles) for j, h in zip(jobs, hs)]
-            rc, out, secs, err = run_cli(["serve", "--jobs", jobs_file, "--cache-dir", tr_dir], timeout=300)
+            rc, out, secs, err = finish_cli(children["serve"], timeout=300)
             check(rc == 0 and out is not None, f"python -m repro_torch serve --jobs exits 0 in "
                   f"{secs:.1f} s {err if rc else ''}")
             check([(j["id"], j["result"]["total_cycles"]) for j in out["jobs"]] == want,
                   f"CLI serve --jobs totals equal in-process {want}")
             log(f"  CLI serve --jobs: {out['stats']['batches']} batches, cache "
                 f"{ {k: out['stats']['cache'][k] for k in ('hits', 'misses', 'compile_seconds')} }")
-
-            # -- the 2-replica fleet on the one card, and the chaos drill
-            rc, out, secs, err = finish_cli(fleet, timeout=600)
+            rc, out, secs, err = finish_cli(children["fleet"], timeout=600)
             check(rc == 0 and out is not None, f"python -m repro_torch fleet --replicas {FLEET_REPLICAS} "
                   f"exits 0 in {secs:.1f} s {err if rc else ''}")
             log(f"  fleet: healthz {out['healthz']['status']}, {out['healthz']['healthy_replicas']} healthy "
@@ -2164,26 +2411,14 @@ def serving_phase(torch, dev, pcfg, params, arrays):
                   "fleet totals equal the synchronous run's")
             rc, out, secs, err = finish_cli(chaos, timeout=600)
             single = (out or {}).get("single", {})
-            log(f"  chaos --quick: exit {rc} in {secs:.1f} s; checks {single.get('checks')}; counters "
-                f"{single.get('counters')}")
+            log(f"  chaos --quick (started with [10]): exit {rc} in {secs:.1f} s; checks "
+                f"{single.get('checks')}; counters {single.get('counters')}")
             check(rc == 0 and out["ok"] and all(single["checks"].values()),
                   f"python -m repro_torch chaos --quick passes every check {err if rc else ''}")
         finally:
-            stop_cli(chaos)
-            stop_cli(fleet)
+            for c in children.values():
+                stop_cli(c)
 
-    # -- a one-shot simulate (cold cache) at three chunk caps
-    firsts = {}
-    for c in CHUNK_CAPS:
-        one = SimNet(art, use_kernel=True, cache=CompileCache(), device=dev)
-        r = one.simulate(arrays[0], n_lanes=ONESHOT_LANES, chunk=c)
-        warm = one.simulate(arrays[0], n_lanes=ONESHOT_LANES, chunk=c)
-        firsts[c] = r.total_cycles
-        log(f"  one-shot simulate, {ONESHOT_LANES} lanes x {len(arrays[0]['feat']) // ONESHOT_LANES} "
-            f"steps, chunk {c}: first_call_seconds {r.first_call_seconds:.3f} (build "
-            f"{r.cache['compile_seconds']:.3f} s), throughput_ips {r.throughput_ips:.1f}; warm call "
-            f"{warm.first_call_seconds:.3f} s, throughput_ips {warm.throughput_ips:.1f}")
-    check(len(set(firsts.values())) == 1, f"the same totals at every chunk {firsts}")
 
 def cuda_flags(torch):
     """Full f32 GEMMs and reductions, in every process of the script."""
@@ -3249,39 +3484,36 @@ def train_step_count(torch, device, arch, layers, batch, seq):
         b = {"tokens": tokens, "loss_mask": torch.ones((batch, seq), device=device)}
     res = opcount.analyze(step, params, adam_init(params), b, fake_mode=fake)
     return {"flops": res["flops"], "bytes": res["bytes_accessed"], "ops": res["n_ops"],
-            "seconds": res["trace_seconds"]}
+            "regions": res["regions"], "seconds": res["trace_seconds"]}
 
 
 def rwkv_train_phase(torch, dev, smi):
-    """[18](c): rwkv6-1.6b trained at full width, RWKV_TRAIN_LAYERS deep, on
-    the card for RWKV_TRAIN_STEPS steps of launch.train.train, and one
-    layer's step counted by runtime.opcount."""
-    import dataclasses
-
+    """[18](c): rwkv6-1.6b trained at full width, all its RWKV_TRAIN_LAYERS
+    layers, on the card for RWKV_TRAIN_STEPS steps of launch.train.train
+    (the wkv kernels' launches counted), and one layer's step counted by
+    runtime.opcount. Returns the wkv kernels' launches in the training."""
     import numpy as np
 
-    from repro_torch.configs import registry
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
     from repro_torch.launch.train import train
 
-    CUT_ARCH = f"{RWKV_TRAIN_ARCH}-cut"
     cfg = get_config(RWKV_TRAIN_ARCH)
+    check(cfg.n_layers == RWKV_TRAIN_LAYERS, f"(c) {RWKV_TRAIN_ARCH} trains all its {cfg.n_layers} layers")
     B, S = RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ
     log(f"[18] (c) {RWKV_TRAIN_ARCH} at full width (d_model {cfg.d_model}, {cfg.n_heads} wkv heads of "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), CUT to {RWKV_TRAIN_LAYERS} of "
-        f"{cfg.n_layers} layers, {cfg.dtype} on f32 masters, remat {cfg.remat}, accum_steps "
-        f"{cfg.accum_steps}: {RWKV_TRAIN_STEPS} steps of launch.train.train at batch {B} x seq {S}, "
-        f"lr {RWKV_TRAIN_LR} ({smi})")
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), all {cfg.n_layers} layers, {cfg.dtype} on "
+        f"f32 masters, remat {cfg.remat}, accum_steps {cfg.accum_steps}: {RWKV_TRAIN_STEPS} steps of "
+        f"launch.train.train at batch {B} x seq {S}, lr {RWKV_TRAIN_LR}; the wkv recurrence the CUDA "
+        f"kernels ({smi})")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    registry.ARCHS[CUT_ARCH] = dataclasses.replace(cfg, n_layers=RWKV_TRAIN_LAYERS)
-    try:
-        t0 = time.perf_counter()
-        res = train(CUT_ARCH, reduced=False, steps=RWKV_TRAIN_STEPS, batch=B, seq=S,
-                    lr=RWKV_TRAIN_LR, device=dev, log_every=1)
-    finally:
-        registry.ARCHS.pop(CUT_ARCH)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = train(RWKV_TRAIN_ARCH, reduced=False, steps=RWKV_TRAIN_STEPS, batch=B, seq=S,
+                lr=RWKV_TRAIN_LR, device=dev, log_every=1)
     wall = time.perf_counter() - t0
+    launched = {k: ops.launches[k] for k in ("wkv_fwd", "wkv_bwd")}
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     losses_c = np.array(res["losses"])
     norms = np.array([m["grad_norm"] for m in res["metrics"]])
@@ -3289,17 +3521,24 @@ def rwkv_train_phase(torch, dev, smi):
     del res
     torch.cuda.empty_cache()
     ms = 1e3 * float(np.mean(step_s[1:]))
+    micro = RWKV_TRAIN_STEPS * cfg.accum_steps * cfg.n_layers  # layer passes a microbatch
     log(f"  {RWKV_TRAIN_STEPS} steps in {wall:.1f} s (init included); step ms: "
         f"{', '.join(f'{1e3 * t:.1f}' for t in step_s)}; after the first {ms:.1f} ms a step, "
         f"{B * S / ms * 1e3:.0f} tokens/s; peak memory {peak:.2f} GB ({smi})")
+    log(f"  wkv kernel launches: {launched} ({RWKV_TRAIN_STEPS} steps x {cfg.accum_steps} microbatches x "
+        f"{cfg.n_layers} layers = {micro} layer passes; remat takes each forward twice)")
     log(f"  losses {losses_c.round(4).tolist()}; grad norms {norms.round(4).tolist()}")
+    check(launched["wkv_fwd"] > 0 and launched["wkv_bwd"] > 0,
+          f"(c) the training ran the wkv kernels: wkv_fwd {launched['wkv_fwd']}, wkv_bwd "
+          f"{launched['wkv_bwd']} launches")
     check(np.isfinite(losses_c).all() and np.isfinite(norms).all() and losses_c[-1] < losses_c[0],
           f"(c) every loss and grad norm finite, the losses falling: {losses_c[0]:.4f} -> "
           f"{losses_c[-1]:.4f}")
     count = train_step_count(torch, dev, RWKV_TRAIN_ARCH, 1, B, RWKV_COUNT_SEQ)
     log(f"  (c) runtime.opcount of one layer's train step at {B} x {RWKV_COUNT_SEQ} (the same step at "
         f"n_layers 1, on the card): {count['bytes']:.6e} bytes, {count['flops']:.6e} FLOPs, "
-        f"{count['ops']} ops, counted in {count['seconds']:.1f} s")
+        f"{count['ops']} ops, regions {count['regions']}, counted in {count['seconds']:.1f} s")
+    return launched
 
 
 def sharded_families_phase(torch, dev, smi, want, started):
@@ -3314,7 +3553,7 @@ def sharded_families_phase(torch, dev, smi, want, started):
     from repro_torch.configs.registry import get_config
 
     t_phase = time.perf_counter()
-    rwkv_train_phase(torch, dev, smi)
+    wkv_launched = rwkv_train_phase(torch, dev, smi)
     t_c = time.perf_counter() - t_phase
     log(f"[18] every LM family sharded: two ranks on {dev}, mesh (data 1, model 2), the all-to-alls "
         f"of DTensor's Shard -> Shard through the ranks' device buffers ({smi})")
@@ -3406,7 +3645,7 @@ def sharded_families_phase(torch, dev, smi, want, started):
           f"{d32:.3e}, {d32 / scale:.2e} of max |logit|)")
 
     log(f"[18] every LM family sharded: {time.perf_counter() - t_phase:.1f} s ((c) {t_c:.1f} s)")
-    return a["k4"]
+    return a["k4"], wkv_launched
 
 
 def counted_pair(torch, what, kernel, run):
@@ -3589,12 +3828,19 @@ def ptxas_entries(log):
 
 
 def only_phases(torch, dev, smi, only, t_start):
-    """``--only 17,18``: the named phases alone (after the builds), to
-    check one on the card; [18] takes [12]'s recurrentgemma-2b run first,
-    for the one-card tokens it is held to. Prints no result line."""
+    """``--only 3c,12,17,18``: the named phases alone (after the builds), to
+    check one on the card; [18] takes [12]'s recurrentgemma-2b run first
+    (the whole of [12] with ``12``), for the one-card tokens it is held to.
+    Prints no result line."""
+    if "3c" in only:
+        wkv_kernel_phase(torch, dev, smi)
     if "18" in only:
         started = start_follower(sharded_families_follower)
+    if "12" in only:
+        want = families_phase(torch, dev)[SHARD_HYBRID_ARCH]
+    elif "18" in only:
         want = family_phase(torch, dev, SHARD_HYBRID_ARCH, None, LM_PROMPT)
+    if "18" in only:
         sharded_families_phase(torch, dev, smi, want, started)
     if "17" in only:
         dryrun_phase(start_dryrun())
@@ -3607,6 +3853,12 @@ def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         sys.exit("chip_smoke.py must run from the root of a checkout (src/repro_torch is missing)")
     sys.path.insert(0, str(ROOT / "src"))
+    # CUPTI stays attached from the first profiler session to the process's
+    # end, as torch.profiler itself keeps it for CUDA graphs: torn down after
+    # each session and attached again lazily, it lost the first device
+    # events of later sessions, more as the process grew (ROADMAP F12)
+    os.environ["TEARDOWN_CUPTI"] = "0"
+    os.environ["DISABLE_CUPTI_LAZY_REINIT"] = "1"
     import torch
 
     if not torch.cuda.is_available():
@@ -3626,7 +3878,11 @@ def main():
     t0 = time.perf_counter()
     built = _build.build()
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s")
+    logged = set()
     for name, b in built.items():
+        if b.path in logged:  # another entry point of the same library
+            continue
+        logged.add(b.path)
         for e in ptxas_entries(b.log):
             log(f"  {name}: {e['fn']}: {e.get('regs')} registers, {e.get('smem', 0)} bytes static "
                 f"smem, {e.get('stack')} bytes stack, spill stores/loads {e.get('spills')}")
@@ -3649,6 +3905,10 @@ def main():
             f"warp group, W padded to {v[0]} columns, "
             f"{('loaded', 'resident by bulk copies', 'streamed')[v[6]]}")
 
+    chunk = getattr(ctypes.CDLL(str(built["wkv_fwd"].path)), "wkv_chunk_steps")
+    chunk.restype = ctypes.c_int
+    check(chunk() == ops.WKV_CHUNK, f"wkv.cu saves the state every {chunk()} steps, as the wrapper "
+          f"sizes it (ops.WKV_CHUNK {ops.WKV_CHUNK})")
     k4_smem = getattr(ctypes.CDLL(str(built["decode_attn"].path)), "decode_attn_smem_bytes")
     k4_smem.argtypes, k4_smem.restype = [ctypes.c_int] * 4, ctypes.c_int
     for what, B, S, H, KV, hd, _, _ in K4_SHAPES:
@@ -3671,6 +3931,7 @@ def main():
 
     pcfg, params, rows, x = kernel_phase(torch, dev)
     rows += conv_decode_kernel_phase(torch, dev, params, x)
+    rows += wkv_kernel_phase(torch, dev, smi)
     mark("[3] kernels")
     teacher_forced_phase(torch, dev)
     routes, launches, traces, arrays = predicted_phase(torch, dev, pcfg, params)
@@ -3691,9 +3952,14 @@ def main():
     del lm
     kinds_phase(torch, dev, arrays)
     mark("[9] predictor kinds")
-    training_phase(torch, dev, traces, arrays)
-    mark("[10] training")
-    serving_phase(torch, dev, pcfg, params, arrays)
+    # [11]'s chaos drill (its own tiny models) runs beside [10] and [11]
+    chaos = start_cli(["chaos", "--quick", "--batch-timeout-s", CHAOS_WATCHDOG_S])
+    try:
+        training_phase(torch, dev, traces, arrays)
+        mark("[10] training")
+        serving_phase(torch, dev, pcfg, params, arrays, chaos)
+    finally:
+        stop_cli(chaos)
     mark("[11] serving")
     del traces
     want18 = families_phase(torch, dev)[SHARD_HYBRID_ARCH]  # [18](a)'s one-card tokens
@@ -3724,8 +3990,9 @@ def main():
     roofline_share(f"{LM_ARCH} decode step at {LM_BATCH} requests (bf16 peak)", decode_count,
                    PEAK_FLOPS, decode_ms, smi)
     mark("[17] dry run and roofline")
-    k4_hybrid = sharded_families_phase(torch, dev, smi, want18, started18)
-    log(f"[18] K4 launches a rank, (a): {k4_hybrid}")
+    k4_hybrid, wkv_launched = sharded_families_phase(torch, dev, smi, want18, started18)
+    launches.update(wkv_launched)
+    log(f"[18] K4 launches a rank, (a): {k4_hybrid}; wkv kernels, (c): {wkv_launched}")
     k4_row["shard"]["hybrid_launches_a_rank"] = k4_hybrid
     mark("[18] every LM family sharded")
     log("phase wall seconds: " + ", ".join(

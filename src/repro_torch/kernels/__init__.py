@@ -15,4 +15,11 @@ card. Every Pallas kernel of the reference has its counterpart:
                 tensor-core MMAs, the splits of the KV length merged by
                 their last block (replaces repro/kernels/decode_attn.py);
                 the LM decode path, ``decode_step(..., use_kernel=True)``
+
+and one kernel pair the port adds for a ``lax.scan`` of the reference:
+
+  wkv         — rwkv6's wkv recurrence, forward and backward
+                (``ops.wkv``, one dispatcher op; the reference's scan in
+                repro/nn/ssm.py::rwkv_timemix); the rwkv prefill and
+                train step
 """

@@ -3,9 +3,11 @@
 Each source in ``csrc/`` is compiled on first use for ``sm_90a`` into a
 shared library with a plain C interface (one ``nvcc`` per source, started
 together), under ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``). A library's file name carries a digest of the sources and
-flags, so an edited source is rebuilt and an unchanged one is reused. If
-``nvcc`` is missing or a build fails, this raises: nothing falls back.
+``.gitignore``); kernels whose entry points share a source (``wkv_fwd``
+and ``wkv_bwd``) share its library. A library's file name carries a
+digest of the sources and flags, so an edited source is rebuilt and an
+unchanged one is reused. If ``nvcc`` is missing or a build fails, this
+raises: nothing falls back.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ KERNELS = {
     "cnn_trunk": ("cnn_trunk.cu", "cnn_trunk_launch", [_P] * 8 + [_I] * 6 + [_P]),
     "conv2s": ("conv2s.cu", "conv2s_launch", [_P] * 4 + [_I] * 5 + [_P]),
     "decode_attn": ("decode_attn.cu", "decode_attn_launch", [_P] * 9 + [_I] * 15 + [_P]),
+    "wkv_fwd": ("wkv.cu", "wkv_fwd_launch", [_P] * 9 + [_I] * 4 + [_P]),
+    "wkv_bwd": ("wkv.cu", "wkv_bwd_launch", [_P] * 14 + [_I] * 4 + [_P]),
 }
 
 
@@ -53,45 +57,48 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def _library_path(name: str) -> Path:
+def _library_path(source: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
     """Compile the named kernels (default: all) that are not built yet,
     one ``nvcc`` process per source, all running at once."""
     names = list(KERNELS if names is None else names)
-    todo = {}
+    todo = {}  # source -> (its library, the kernels it holds)
     for name in names:
         if name in _built:
             continue
-        out = _library_path(name)
+        source = KERNELS[name][0]
+        out = _library_path(source)
         if out.is_file():
             _built[name] = Built(out, "")
         else:
-            todo[name] = out
+            todo.setdefault(source, (out, []))[1].append(name)
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         procs = {}
-        for name, out in todo.items():
+        for source, (out, _) in todo.items():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True), tmp)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+            procs[source] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True), tmp)
         failed = []
-        for name, (proc, tmp) in procs.items():
+        for source, (proc, tmp) in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                failed.append(f"{KERNELS[name][0]} (exit {proc.returncode}):\n{log}")
+                failed.append(f"{source} (exit {proc.returncode}):\n{log}")
                 continue
-            os.replace(tmp, todo[name])
-            _built[name] = Built(todo[name], log)
+            out, held = todo[source]
+            os.replace(tmp, out)
+            for name in held:
+                _built[name] = Built(out, log)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {n: _built[n] for n in names}

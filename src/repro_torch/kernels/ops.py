@@ -16,14 +16,17 @@ the card ran.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.core.features import N_ADDR_KEYS, N_FEATURES, STATIC_END
 from repro_torch.kernels import _build, ref
+from repro_torch.runtime import opcount
 
-launches = {"fused_step": 0, "cnn_trunk": 0, "conv2s": 0, "decode_attn": 0}
+launches = {"fused_step": 0, "cnn_trunk": 0, "conv2s": 0, "decode_attn": 0, "wkv_fwd": 0,
+            "wkv_bwd": 0}
 # conv widths (C1, C2, C3) the trunk kernels K1/K2 are compiled for
 # (csrc/trunk_common.cuh): the C3 model's
 TRUNK_WIDTHS = (64, 128, 128)
@@ -375,3 +378,149 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_len, *,
             S if offset is None else _INT32_MAX, plan.splits, plan.stages, plan.rt,
             plan.row_groups, plan.smem_bytes, dev.index)
     return (out, lse) if return_lse else out
+
+
+WKV_HEAD_DIMS = (32, 64, 128)
+# csrc/wkv.cu's kC: the forward saves the state before every WKV_CHUNK-th
+# step for the backward, which recomputes the states in between
+WKV_CHUNK = 16
+
+
+def wkv_checkpoints_shape(B: int, T: int, H: int, hd: int) -> tuple:
+    """The states the forward kernel saves for the backward: (B, H,
+    ceil(T / WKV_CHUNK), hd, hd) f32 (at B 4, T 1024, H 32, hd 64: 134 MB)."""
+    return (B, H, -(-T // WKV_CHUNK), hd, hd)
+
+
+def _wkv_cuda_args(*tensors):
+    dev = _cuda_device(*tensors)
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("wkv's tensors must start 16-byte aligned (the kernels copy 16-byte "
+                             "units)")
+    return dev
+
+
+@torch.library.custom_op("repro_torch::wkv", mutates_args=(),
+                         schema="(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor s0, "
+                                "bool save) -> (Tensor, Tensor, Tensor)")
+def _wkv_op(r, k, v, w, u, s0, save):
+    """(y, last S, the saved states or an empty tensor): `wkv`'s one op."""
+    if r.device.type == "cpu":
+        y, s = ref.wkv_ref(r, k, v, w, u, s0)
+        return y, s, r.new_empty(0)
+    B, T, H, hd = r.shape
+    dev = _wkv_cuda_args(r, k, v, w, u, s0)
+    y, s_out = torch.empty_like(r), torch.empty_like(s0)
+    ckpt = torch.empty(wkv_checkpoints_shape(B, T, H, hd) if save else (0,), dtype=torch.float32,
+                       device=dev)
+    _launch("wkv_fwd", dev, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            s0.data_ptr(), y.data_ptr(), s_out.data_ptr(), ckpt.data_ptr() if save else None,
+            B, T, H, hd, dev.index)
+    return y, s_out, ckpt
+
+
+@_wkv_op.register_fake
+def _(r, k, v, w, u, s0, save):
+    B, T, H, hd = r.shape
+    ckpt = r.new_empty(wkv_checkpoints_shape(B, T, H, hd) if save else (0,))
+    return torch.empty_like(r), torch.empty_like(s0), ckpt
+
+
+@torch.library.custom_op("repro_torch::wkv_bwd", mutates_args=(),
+                         schema="(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor s0, "
+                                "Tensor ckpt, Tensor gy, Tensor? gs) -> (Tensor, Tensor, Tensor, "
+                                "Tensor, Tensor, Tensor)")
+def _wkv_bwd_op(r, k, v, w, u, s0, ckpt, gy, gs):
+    """(gr, gk, gv, gw, gu, gS0) from the forward's inputs, its saved
+    states, gy and g(S_T) (None: zeros): the backward kernel's one op. On
+    the CPU the gradient is the plain loop's autograd (`_wkv_backward`)."""
+    if r.device.type == "cpu":
+        raise ValueError("wkv_bwd launches the CUDA kernel; on the CPU the plain loop's autograd "
+                         "gives wkv's gradient")
+    B, T, H, hd = r.shape
+    if tuple(ckpt.shape) != wkv_checkpoints_shape(B, T, H, hd):
+        raise ValueError(f"wkv_bwd needs the forward's saved states "
+                         f"{wkv_checkpoints_shape(B, T, H, hd)}, got {tuple(ckpt.shape)}")
+    gy = gy.contiguous()
+    gs = None if gs is None else gs.contiguous()
+    dev = _wkv_cuda_args(r, k, v, w, u, ckpt, gy, *([] if gs is None else [gs]))
+    gr, gk, gv, gw = (torch.empty_like(r) for _ in range(4))
+    gu_part = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
+    gs0 = torch.empty_like(s0)
+    _launch("wkv_bwd", dev, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            ckpt.data_ptr(), gy.data_ptr(), None if gs is None else gs.data_ptr(), gr.data_ptr(),
+            gk.data_ptr(), gv.data_ptr(), gw.data_ptr(), gu_part.data_ptr(), gs0.data_ptr(),
+            B, T, H, hd, dev.index)
+    return gr, gk, gv, gw, gu_part.sum(0), gs0
+
+
+@_wkv_bwd_op.register_fake
+def _(r, k, v, w, u, s0, ckpt, gy, gs):
+    return (*(torch.empty_like(r) for _ in range(4)), torch.empty_like(u), torch.empty_like(s0))
+
+
+def _wkv_setup(ctx, inputs, output):
+    r, k, v, w, u, s0, _ = inputs
+    ctx.mark_non_differentiable(output[2])
+    ctx.set_materialize_grads(False)  # no zeros of the saved states' size for their gradient
+    ctx.save_for_backward(r, k, v, w, u, s0, output[2])
+
+
+def _wkv_backward(ctx, gy, gs, _):
+    from torch._subclasses.fake_tensor import is_fake
+
+    r, k, v, w, u, s0, ckpt = ctx.saved_tensors
+    gy = torch.zeros_like(r) if gy is None else gy
+    work = lambda: opcount.wkv_work(r, k, v, w, u, s0,  # noqa: E731
+                                    states=ckpt.numel() * ckpt.element_size(), backward=True)
+    with opcount.region("wkv", work):
+        if r.device.type == "cpu" and not is_fake(r):
+            # the plain loop's own autograd (its bits, its O(T) backward),
+            # on the forward taken again
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_() for t in (r, k, v, w, u, s0)]
+                y, s = ref.wkv_ref(*ins)
+                pairs = [(y, gy)] + ([] if gs is None else [(s, gs)])
+                got = torch.autograd.grad([o for o, _ in pairs], ins, [g for _, g in pairs])
+        else:
+            got = _wkv_bwd_op(r, k, v, w, u, s0, ckpt, gy, gs)
+    return (*got, None)
+
+
+torch.library.register_autograd("repro_torch::wkv", _wkv_backward, setup_context=_wkv_setup)
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+        s0: torch.Tensor):
+    """rwkv6's wkv recurrence (`ref.wkv_ref`): r, k, v, w (B, T, H, hd), u
+    (H, hd) and the state s0 (B, H, hd, hd), all f32 and contiguous ->
+    (y (B, T, H, hd), the last state). One dispatcher op
+    (``repro_torch::wkv``) whatever T is, with its autograd: on CPU tensors
+    the plain loop (its backward the loop's autograd), on CUDA tensors the
+    forward kernel (``launches["wkv_fwd"]``; it also saves the state every
+    WKV_CHUNK steps when a gradient may be asked) and the backward kernel
+    (``launches["wkv_bwd"]``), hd 32, 64 or 128; fake tensors trace it as
+    one op. Counted as one ``"wkv"`` region (`runtime.opcount.wkv_work`),
+    its backward as another. The regions open here, not in the callers as
+    K1-K4's do, because only the op's autograd function sees the
+    backward."""
+    B, T, H, hd = r.shape
+    for name, t, shape in (("r", r, (B, T, H, hd)), ("k", k, (B, T, H, hd)),
+                           ("v", v, (B, T, H, hd)), ("w", w, (B, T, H, hd)), ("u", u, (H, hd)),
+                           ("s0", s0, (B, H, hd, hd))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"wkv takes f32 contiguous r, k, v, w {(B, T, H, hd)}, u {(H, hd)} "
+                             f"and s0 {(B, H, hd, hd)}; got {name} {tuple(t.shape)} {t.dtype}"
+                             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+    if T == 0:
+        raise ValueError("wkv needs at least one step")
+    if r.device.type == "cuda" and hd not in WKV_HEAD_DIMS:
+        raise ValueError(f"wkv kernels take head_dim in {WKV_HEAD_DIMS}, got {hd}")
+    ts = (r, k, v, w, u, s0)
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+    states = 4 * math.prod(wkv_checkpoints_shape(B, T, H, hd)) if save else 0
+    work = lambda: opcount.wkv_work(*ts, states=states)  # noqa: E731
+    with opcount.region("wkv", work):
+        y, s, _ = _wkv_op(*ts, save)
+    return y, s

@@ -76,3 +76,26 @@ def decode_attn_ref(q, k, v, cache_len, *, window: int = 0, offset=None, return_
         return ctx
     lse = torch.logsumexp(torch.where(valid, logits, -torch.inf), dim=-1)
     return ctx, lse.reshape(B, H)
+
+
+def wkv_step_ref(S, r_t, k_t, v_t, w_t, uh):
+    """One step of rwkv6's wkv recurrence, f32. S: (B, H, hd, hd); r/k/v/w_t:
+    (B, H, hd); uh: (H, hd). Returns (y_t (B, H, hd), new S)."""
+    kv = k_t[..., :, None] * v_t[..., None, :]
+    y_t = torch.einsum("bhi,bhij->bhj", r_t, S + uh[None, :, :, None] * kv)
+    return y_t, w_t[..., None] * S + kv
+
+
+def wkv_ref(rh, kh, vh, wh, uh, S):
+    """The wkv recurrence along T of (B, T, H, hd) f32 r, k, v and w from
+    state S (B, H, hd, hd): (y (B, T, H, hd), the last S), a loop of
+    `wkv_step_ref` as the reference's ``lax.scan`` over its step. Each
+    input is split along T once (the reference's ``moveaxis`` into the
+    scan), so the backward stacks each input's gradient once: O(T) bytes,
+    where a select a step would scatter a full (B, T, H, hd) gradient a
+    step."""
+    ys = []
+    for r_t, k_t, v_t, w_t in zip(*(t.unbind(1) for t in (rh, kh, vh, wh))):
+        y_t, S = wkv_step_ref(S, r_t, k_t, v_t, w_t, uh)
+        ys.append(y_t)
+    return torch.stack(ys, dim=1), S

@@ -7,7 +7,8 @@ as in the reference. Two sequence forms differ in how they sum:
 - the RG-LRU prefill is the reference's associative scan, done here by
   doubling (`_linear_scan`: log2 T rounds of elementwise work) where XLA
   uses its own tree, so the f32 sums are associated in another order;
-- the RWKV6 prefill is a loop over time, as the reference's ``lax.scan``.
+- the RWKV6 prefill is one op over time (`kernels.ops.wkv`: CUDA kernels
+  on the card, a loop on the CPU), as the reference's ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ref import wkv_ref, wkv_step_ref
 from repro_torch.nn.init import ShardSpec, dense_init, scalar_init, split_keys
 from repro_torch.nn.layers import (causal_conv1d, causal_conv1d_params, causal_conv1d_specs,
                                    causal_conv1d_step)
@@ -278,38 +281,26 @@ def _timemix_inputs(params, x, x_prev, dtype):
     return r, k, v, g, w
 
 
-def _wkv_step(S, r_t, k_t, v_t, w_t, uh):
-    """One step of the wkv recurrence, f32. S: (B, H, hd, hd); r/k/v/w_t:
-    (B, H, hd); uh: (H, hd). Returns (y_t (B, H, hd), new S)."""
-    kv = k_t[..., :, None] * v_t[..., None, :]
-    y_t = torch.einsum("bhi,bhij->bhj", r_t, S + uh[None, :, :, None] * kv)
-    return y_t, w_t[..., None] * S + kv
-
-
 def _wkv_scan(rh, kh, vh, wh, uh, S):
     """The wkv recurrence along T of (B, T, H, hd) f32 r, k, v and w from
-    state S: (y (B, T, H, hd), the last S). Each input is split along T
-    once (the reference's ``moveaxis`` into ``lax.scan``), so the backward
-    stacks each input's gradient once: O(T) bytes, where a select a step
-    would scatter a full (B, T, H, hd) gradient a step. On DTensors each
-    rank runs the steps on its local rows (`_wkv_scan_local`)."""
+    state S: (y (B, T, H, hd), the last S), as one op (`kernels.ops.wkv`:
+    the CUDA kernels on the card, the plain loop `kernels.ref.wkv_ref` on
+    the CPU), where the reference runs one ``lax.scan``. On DTensors each
+    rank runs it on its local rows (`_wkv_scan_local`)."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(rh, DTensor):
-        return _wkv_scan_local(rh, kh, vh, wh, uh, S)
-    ys = []
-    for r_t, k_t, v_t, w_t in zip(*(t.unbind(1) for t in (rh, kh, vh, wh))):
-        y_t, S = _wkv_step(S, r_t, k_t, v_t, w_t, uh)
-        ys.append(y_t)
-    return torch.stack(ys, dim=1), S
+        return _wkv_scan_local(kernel_ops.wkv, rh, kh, vh, wh, uh, S)
+    return kernel_ops.wkv(*(t.contiguous() for t in (rh, kh, vh, wh, uh, S)))
 
 
-def _wkv_scan_local(rh, kh, vh, wh, uh, S):
-    """`_wkv_scan` of DTensors: batch rows and heads keep their split (the
+def _wkv_scan_local(scan, rh, kh, vh, wh, uh, S):
+    """``scan`` (`kernels.ops.wkv`, or the plain `kernels.ref.wkv_ref` for a
+    decode step) of DTensors: batch rows and heads keep their split (the
     recurrence never mixes them), T and hd are gathered, and each rank
-    steps its local tensors, so a long sequence costs T plain ops a rank
-    instead of T DTensor dispatches. ``u`` is shared by the batch rows:
-    its gradient is a partial sum over the mesh dims that split them."""
+    runs it on its local tensors, so a long sequence costs no DTensor
+    dispatch a step. ``u`` is shared by the batch rows: its gradient is a
+    partial sum over the mesh dims that split them."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.runtime.sharding import place
@@ -322,8 +313,8 @@ def _wkv_scan_local(rh, kh, vh, wh, uh, S):
     u_grad = [Partial() if p.is_shard(0) else q for p, q in zip(rows, u.placements)]
     s = place(S, mesh, [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2) else Replicate()
                         for p in rows])
-    y, s_last = _wkv_scan(*(t.to_local() for t in (r, k, v, w)),
-                          u.to_local(grad_placements=u_grad), s.to_local())
+    y, s_last = scan(*(t.to_local().contiguous() for t in (r, k, v, w)),
+                     u.to_local(grad_placements=u_grad).contiguous(), s.to_local().contiguous())
     return (DTensor.from_local(y, mesh, rows, run_check=False),
             DTensor.from_local(s_last, mesh, s.placements, run_check=False))
 
@@ -345,7 +336,9 @@ def rwkv_timemix(params, x, x_last, state0, *, n_heads, dtype=torch.bfloat16):
 
 def rwkv_timemix_step(params, x_t, x_last, state, *, n_heads, dtype=torch.bfloat16):
     """Decode step. x_t: (B, D); state: (B, H, hd, hd) fp32.
-    Returns (y, x_last', state')."""
+    Returns (y, x_last', state'). The one wkv step stays plain PyTorch
+    (`kernels.ref.wkv_step_ref`), inside the decode step's CUDA graph on one
+    card, and on each rank's local heads on a mesh."""
     from torch.distributed.tensor import DTensor
 
     r, k, v, g, w = _timemix_inputs(params, x_t, x_last, dtype)
@@ -354,11 +347,11 @@ def rwkv_timemix_step(params, x_t, x_last, state, *, n_heads, dtype=torch.bfloat
     wh = _headify(w, n_heads)
     if isinstance(rh, DTensor):  # each rank steps its local heads: torch 2.11's DTensor
         # refuses the step's einsum with the heads split (it flattens (B, H))
-        y, state_new = _wkv_scan_local(*(t[:, None] for t in (rh, kh, vh, wh)), uh,
+        y, state_new = _wkv_scan_local(wkv_ref, *(t[:, None] for t in (rh, kh, vh, wh)), uh,
                                        state.to(torch.float32))
         y = y[:, 0]
     else:
-        y, state_new = _wkv_step(state.to(torch.float32), rh, kh, vh, wh, uh)
+        y, state_new = wkv_step_ref(state.to(torch.float32), rh, kh, vh, wh, uh)
     y = _group_norm(y, params["ln_g"], params["ln_b"])
     y = (y * g.to(torch.float32)).to(dtype)
     return y @ params["wo"].to(dtype), x_t, state_new

@@ -112,8 +112,14 @@ def region(name: str, work: Callable[[], Dict]):
     only while a counter is active) returns the layer's ``flops`` and
     ``bytes`` (and optionally ``dots``: FLOPs by GEMM); every active
     counter adds them and counts the ops inside as nothing. Regions nest:
-    the outermost counts."""
+    the outermost counts. A backward that autograd runs on a thread of its
+    own (a CUDA device's) has the caller's dispatch modes but not this
+    thread's list: there the counters are taken from the mode stack."""
     stack = getattr(_state, "counters", None)
+    if not stack and torch._C._len_torch_dispatch_stack():
+        from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+        stack = [m for m in _get_current_dispatch_mode_stack() if isinstance(m, OpCounter)]
     if not stack:
         return _NULL
     return _Region(name, work, list(stack))
@@ -495,3 +501,19 @@ def decode_attn_work(q, k, v, cache_len, *, window: int = 0, offset: Optional[in
     lse = B * H * 4 if offset is not None else 0
     return {"flops": flops, "bytes": float(_nbytes(q) + kv + out + lse),
             "dots": {"decode_attn": flops}}
+
+
+def wkv_work(r, k, v, w, u, s0, *, states: int = 0, backward: bool = False) -> Dict:
+    """rwkv6's wkv recurrence over (B, T, H, hd) r, k, v, w from the state
+    s0 (`kernels.ops.wkv`), or its backward. FLOPs: those the plain loop
+    (`kernels.ref.wkv_ref`) counts, its one einsum a step as a GEMM (2 · B
+    · H · hd² a step), two a step in its backward. Bytes: what the kernels
+    move, each tensor once: the forward reads r, k, v, w, u and s0 and
+    writes y and the last state, the backward reads those inputs and gy,
+    g(S_T) and writes a gradient of each input; both move ``states`` bytes
+    of saved states (written by the forward, read by the backward)."""
+    B, T, H, hd = r.shape
+    flops = 2.0 * B * T * H * hd * hd * (2 if backward else 1)
+    ins = _nbytes(r, k, v, w, u, s0)
+    moved = 2 * ins + _nbytes(r, s0) if backward else ins + _nbytes(r, s0)
+    return {"flops": flops, "bytes": float(moved + states), "dots": {"wkv": flops}}

@@ -433,7 +433,13 @@ def test_cpu_tensors_take_the_plain_version():
     q, k, v = _decode_inputs(2, 4, 2, 32, 40, seed=8)
     assert torch.equal(ops.decode_attn(q, k, v, torch.tensor(30, dtype=torch.int32), window=16),
                        ref.decode_attn_ref(q, k, v, torch.tensor(30), window=16))
-    assert ops.launches == {"fused_step": 0, "cnn_trunk": 0, "conv2s": 0, "decode_attn": 0}
+    g = torch.Generator().manual_seed(4)
+    wkv_in = [torch.randn(2, 5, 2, 32, generator=g) for _ in range(4)]
+    wkv_in += [torch.randn(2, 32, generator=g), torch.randn(2, 2, 32, 32, generator=g)]
+    for got, want in zip(ops.wkv(*wkv_in), ref.wkv_ref(*wkv_in)):
+        assert torch.equal(got, want)
+    assert ops.launches == {"fused_step": 0, "cnn_trunk": 0, "conv2s": 0, "decode_attn": 0,
+                            "wkv_fwd": 0, "wkv_bwd": 0}
 
 
 def test_fused_step_ref_is_the_plain_composition():

@@ -357,15 +357,16 @@ def test_k4_region_bytes_against_the_plain_path_op_by_op():
 
 
 def test_a_loop_on_shape_only_tensors_counts_one_step_times_its_trips():
-    """rwkv's wkv scan over T steps: on fake tensors (a dry run) the loop
-    counts each step, as on real tensors, forward and backward."""
-    from repro_torch.nn import ssm
+    """rwkv's plain wkv loop over T steps (`kernels.ref.wkv_ref`): on fake
+    tensors (a dry run) the loop counts each step, as on real tensors,
+    forward and backward."""
+    from repro_torch.kernels import ref
 
     B, T, H, hd = 2, 12, 2, 8
     shapes = [(B, T, H, hd)] * 4 + [(H, hd)]
 
     def fwd_bwd(r, k, v, w, u, S):
-        y, last = ssm._wkv_scan(r, k, v, w, u, S)
+        y, last = ref.wkv_ref(r, k, v, w, u, S)
         torch.autograd.grad(y.sum() + last.sum(), [r, k, v, w, u])
 
     real = [torch.randn(s, requires_grad=True) for s in shapes] + [torch.zeros(B, H, hd, hd)]
@@ -379,11 +380,11 @@ def test_a_loop_on_shape_only_tensors_counts_one_step_times_its_trips():
 
 
 def test_the_wkv_backward_moves_bytes_linear_in_T():
-    """rwkv's wkv scan backward at T and 2T: each input's gradient is
-    stacked once, so the counted bytes at most 2.2 times (a select a step
-    would scatter a full (B, T, H, hd) gradient a step: 3.4-3.8 times at
-    these lengths)."""
-    from repro_torch.nn import ssm
+    """rwkv's plain wkv loop's backward (`kernels.ref.wkv_ref`, the CPU
+    path's gradient) at T and 2T: each input's gradient is stacked once, so
+    the counted bytes at most 2.2 times (a select a step would scatter a
+    full (B, T, H, hd) gradient a step: 3.4-3.8 times at these lengths)."""
+    from repro_torch.kernels import ref
 
     B, H, hd = 2, 2, 8
 
@@ -391,7 +392,7 @@ def test_the_wkv_backward_moves_bytes_linear_in_T():
         g = torch.Generator().manual_seed(0)
         ins = [torch.randn(B, T, H, hd, generator=g, requires_grad=True) for _ in range(4)]
         u = torch.randn(H, hd, generator=g, requires_grad=True)
-        y, last = ssm._wkv_scan(*ins, u, torch.zeros(B, H, hd, hd))
+        y, last = ref.wkv_ref(*ins, u, torch.zeros(B, H, hd, hd))
         loss = y.sum() + last.sum()
         return analyze(lambda: torch.autograd.grad(loss, ins + [u]))["bytes_accessed"]
 
