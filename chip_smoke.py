@@ -791,6 +791,20 @@ def wkv_inputs(torch, dev, B, T, H, hd, seed):
     return [r, k, v, w, 0.5 * normal((H, hd)), normal(state), normal(seq), normal(state)]
 
 
+def wkv_geometry(name, B, H, hd):
+    """A wkv kernel's launch at (B, H, hd), as csrc/wkv.cu computes it:
+    blocks, blocks a cluster, threads a block, dynamic shared memory."""
+    from repro_torch.kernels import _build
+
+    fn = getattr(ctypes.CDLL(str(_build.build([name])[name].path)), "wkv_geometry")
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
+    g = (ctypes.c_int * 4)()
+    if fn(int(name == "wkv_bwd"), B, H, hd, g) != 0:
+        raise RuntimeError(f"{name} takes no head_dim {hd}")
+    cluster = f"clusters of {g[1]}" if g[1] > 1 else "no cluster"
+    return f"grid {g[0]} blocks ({cluster}) x {g[2]} threads, {g[3]} B of dynamic shared memory a block"
+
+
 def wkv_kernel_phase(torch, dev, smi):
     """[3c]: the wkv forward and backward kernels at rwkv6-1.6b's training
     and prefill shapes (WKV_SHAPES), each output and gradient held to the
@@ -804,6 +818,7 @@ def wkv_kernel_phase(torch, dev, smi):
 
     rows = {}
     for what, B, T, H, hd in WKV_SHAPES:
+        geometry = {name: wkv_geometry(name, B, H, hd) for name in ("wkv_fwd", "wkv_bwd")}
         r, k, v, w, u, s0, gy, gs = wkv_inputs(torch, dev, B, T, H, hd, SEED + T)
         ins = (r, k, v, w, u, s0)
         log(f"[3c] wkv at rwkv6-1.6b's {what} shape: r/k/v/w/y ({B}, {T}, {H}, {hd}), u ({H}, {hd}), "
@@ -862,7 +877,9 @@ def wkv_kernel_phase(torch, dev, smi):
             plain = ("not timed here" if plain_ms is None else
                      f"{plain_ms:.4f} ms (the loop; its autograd for the backward), {plain_ms / ms:.1f}x "
                      "slower than the kernel")
-            log(f"  {name} {what}{' (saving the states)' if name == 'wkv_fwd' and train else ''}: kernel "
+            saving = (f" (saving the states: {ckpt.nbytes} bytes)" if name == "wkv_fwd" and train else
+                      f" (reading {ckpt.nbytes} bytes of saved states)" if name == "wkv_bwd" else "")
+            log(f"  {name} {what}{saving}, {geometry[name]}: kernel "
                 f"{ms:.4f} ms, plain {plain}, library: none (no one PyTorch call computes the "
                 f"recurrence), bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the bound; "
                 f"max_abs_err " + ", ".join(f"{n} {errs[n]:.3e}" for n in keys))
@@ -3905,10 +3922,18 @@ def main():
             f"warp group, W padded to {v[0]} columns, "
             f"{('loaded', 'resident by bulk copies', 'streamed')[v[6]]}")
 
-    chunk = getattr(ctypes.CDLL(str(built["wkv_fwd"].path)), "wkv_chunk_steps")
+    wkv_lib = ctypes.CDLL(str(built["wkv_fwd"].path))
+    chunk = getattr(wkv_lib, "wkv_chunk_steps")
     chunk.restype = ctypes.c_int
     check(chunk() == ops.WKV_CHUNK, f"wkv.cu saves the state every {chunk()} steps, as the wrapper "
           f"sizes it (ops.WKV_CHUNK {ops.WKV_CHUNK})")
+    for name in ("wkv_fwd", "wkv_bwd"):
+        fn = getattr(wkv_lib, f"{name}_smem_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        smem = {hd: fn(hd) for hd in ops.WKV_HEAD_DIMS}
+        check(all(0 < b <= max_smem for b in smem.values()),
+              f"{name}: " + ", ".join(f"hd {hd} {b}" for hd, b in smem.items()) +
+              f" bytes of dynamic shared memory a block (of {max_smem})")
     k4_smem = getattr(ctypes.CDLL(str(built["decode_attn"].path)), "decode_attn_smem_bytes")
     k4_smem.argtypes, k4_smem.restype = [ctypes.c_int] * 4, ctypes.c_int
     for what, B, S, H, KV, hd, _, _ in K4_SHAPES:

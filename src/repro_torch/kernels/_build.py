@@ -34,8 +34,8 @@ KERNELS = {
     "cnn_trunk": ("cnn_trunk.cu", "cnn_trunk_launch", [_P] * 8 + [_I] * 6 + [_P]),
     "conv2s": ("conv2s.cu", "conv2s_launch", [_P] * 4 + [_I] * 5 + [_P]),
     "decode_attn": ("decode_attn.cu", "decode_attn_launch", [_P] * 9 + [_I] * 15 + [_P]),
-    "wkv_fwd": ("wkv.cu", "wkv_fwd_launch", [_P] * 9 + [_I] * 4 + [_P]),
-    "wkv_bwd": ("wkv.cu", "wkv_bwd_launch", [_P] * 14 + [_I] * 4 + [_P]),
+    "wkv_fwd": ("wkv.cu", "wkv_fwd_launch", [_P] * 9 + [_I] * 5 + [_P]),
+    "wkv_bwd": ("wkv.cu", "wkv_bwd_launch", [_P] * 14 + [_I] * 5 + [_P]),
 }
 
 

@@ -6,7 +6,8 @@ times each, with CUDA events over 20 launches. K1/K2 at the main path's
 shape (1024 lanes, Q = 64, seq_padded 72) and at one workload's 128 lanes;
 K3 at the three C3 layers at 1024 lanes ((1024, 72, 50) -> 64,
 (1024, 36, 64) -> 128, (1024, 18, 128) -> 128); K4 at gemma3-4b's decode
-shape (both windows) and at each other family's, in bf16:
+shape (both windows) and at each other family's, in bf16; the wkv pair
+(``wkv_fwd``, ``wkv_bwd``) at rwkv6-1.6b's training shape:
 
   full          the kernels as they are
   stream_only   no FMAs: (K1/K2) the tile's input, the weight slabs and
@@ -19,14 +20,20 @@ shape (both windows) and at each other family's, in bf16:
   compute_only  (K2) the FMAs over the first slabs only: no weight traffic
                 after the prologue; (K3) the FMAs and the stores, with no
                 input tile copied or waited for
+  fwd_*, bwd_*  (wkv) without: the y reduction's shuffles, the chunk loads
+                after the prologue, the steps, y's stores (forward); the
+                history's recomputation, the steps, the row and column
+                sums' shuffles, the loads, the other blocks' gv partials
+                (the block's own read in their place), gv's sums over the
+                cluster (backward); and the forward saving no states
 
 then samples the SM clock and the power draw while K2, then K3 at the
 first layer, run back to back. Run it on a machine with the card, from the
 root of a checkout:
 
-    PYTHONPATH=src python -m repro_torch.kernels.breakdown [decode_attn]
+    PYTHONPATH=src python -m repro_torch.kernels.breakdown [decode_attn | wkv]
 
-(``decode_attn``: K4's parts alone.)
+(``decode_attn``: K4's parts alone; ``wkv``: the wkv pair's.)
 
 The copies are built under ``build/kernels/breakdown/``; the port never
 loads them.
@@ -84,6 +91,37 @@ K4_BULK_ROWS = [
   }
 """),
 ]
+# the wkv pair's parts (csrc/wkv.cu)
+WKV_FWD_SUM = ("  reduce_lanes<kCJ, P::RT / 2, ilog2(P::RT)>(acc, lane);\n  return acc[0];\n",
+               "  float z = 0.f;  // no shuffles: the tile's y partials summed in the lane\n"
+               "  for (int p = 0; p < kCJ; ++p) z += acc[p];\n  return z;\n")
+WKV_FWD_NO_LOADS = [("    sm90::mbar_wait(&full[s], (c / P::STAGES) & 1);\n",
+                     "    if (c < P::STAGES) sm90::mbar_wait(&full[s], 0);\n"),
+                    ("    if (c + P::STAGES < chunks) {\n",
+                     "    if (c + P::STAGES < 0) {  // no loads after the prologue\n")]
+WKV_FWD_NO_STEPS = ("      for (int tt = 0; tt < kC; ++tt) yt[tt] = fwd_step<HD>(S, uu, x, tt, i0, j0, lane);\n",
+                    "      for (int tt = 0; tt < kC; ++tt) yt[tt] = x[tt * HD + i0] + S[0][0];\n")
+WKV_FWD_NO_Y = ("        for (int tt = 0; tt < kC; ++tt) yc[tt * stride] = yt[tt];\n",
+                "        for (int tt = 0; tt < kC; ++tt) if (yt[tt] == 1234.5f) yc[tt * stride] = yt[tt];\n")
+WKV_BWD_NO_RECOMPUTE = ("      bwd_recompute<HD>(S, x, hist + tid, lo, hi, i0, j0);\n", "")
+WKV_BWD_NO_STEPS = (
+    "          bwd_step<HD>(G, uu, x, hist + tid, lo, hi - 1 - e, i0, j0, sum0, lane, outs[e], gu_acc, gvr[e]);\n",
+    "          for (int s = 0; s < P::HELD; ++s) outs[e][s] = G[0][0] + x[e];\n"
+    "          for (int s = 0; s < P::GV_HELD; ++s) gvr[e][s] = G[0][1];\n")
+WKV_BWD_SUMS = [
+    ("  reduce_lanes<P::SUMS, CT / 2, ilog2(CT)>(sums, lane);\n",
+     "  for (int s = P::HELD; s < P::SUMS; ++s) sums[s % P::HELD] += sums[s];  // no shuffles\n"),
+    ("  d = __shfl_sync(kFull, sums[0], 3 * kRI * CT / P::SUMS, CT);\n", "  d = sums[0];\n"),
+    ("  reduce_lanes<kCJ, 16, ilog2(P::RTW)>(e, lane);\n",
+     "  for (int p = P::GV_HELD; p < kCJ; ++p) e[p % P::GV_HELD] += e[p];\n")]
+WKV_BWD_NO_LOADS = [
+    ("    sm90::mbar_wait(&full[s], (n >> 1) & 1);\n", "    if (n < 2) sm90::mbar_wait(&full[s], 0);\n"),
+    ("    bool refill = n >= 1 && n + 1 < chunks;", "    bool refill = false;"),
+    ("      if (half == 0 && n + 1 < chunks) load_tile(", "      if (half == 0 && n + 1 < 0) load_tile(")]
+WKV_BWD_NO_GV_SUMS = ("  for (int e = tid; e < steps * COLS; e += P::THREADS) {\n",
+                      "  for (int e = tid; e < 0; e += P::THREADS) {\n")
+WKV_BWD_NO_DSMEM = ("      const float* src = cluster.map_shared_rank(parts, q);\n",
+                    "      const float* src = parts;\n")
 # source edited -> {variant: [(old line, new line)]}, and the kernels built from it
 VARIANTS = {
     "trunk_common.cuh": ({
@@ -107,6 +145,19 @@ VARIANTS = {
         "ring_only": [K4_NO_MATH, K4_NO_MERGE],
         "bulk_rows_ring_only": [K4_NO_MATH, K4_NO_MERGE] + K4_BULK_ROWS,
     }, ("decode_attn",)),
+    "wkv.cu": ({
+        "full": [],
+        "fwd_no_shuffles": [WKV_FWD_SUM],
+        "fwd_no_loads": WKV_FWD_NO_LOADS,
+        "fwd_no_steps": [WKV_FWD_NO_STEPS],
+        "fwd_no_y_stores": [WKV_FWD_NO_Y],
+        "bwd_no_recompute": [WKV_BWD_NO_RECOMPUTE],
+        "bwd_no_steps": [WKV_BWD_NO_STEPS],
+        "bwd_no_shuffles": WKV_BWD_SUMS,
+        "bwd_no_loads": WKV_BWD_NO_LOADS,
+        "bwd_no_dsmem": [WKV_BWD_NO_DSMEM],
+        "bwd_no_gv_sums": [WKV_BWD_NO_GV_SUMS],
+    }, ("wkv_fwd", "wkv_bwd")),
 }
 ARGS = {name: argtypes for name, (_, _, argtypes) in _build.KERNELS.items()}
 K3_LAYERS = ((72, 50, 64), (36, 64, 128), (18, 128, 128))  # (N, C, Co) at 1024 lanes
@@ -139,24 +190,29 @@ def build(sources=tuple(VARIANTS)):
             for src in _build.CSRC.glob("*.cu*"):
                 shutil.copy(src, d / src.name)
             (d / source).write_text(text)
-            for kernel in kernels:
-                if kernel == "fused_step" and variant == "compute_only":
+            # a .cu source holds its kernels; a header's are in their own sources
+            units = ({source.split(".")[0]: kernels} if source.endswith(".cu") else
+                     {kernel: (kernel,) for kernel in kernels})
+            for unit, held in units.items():
+                if unit == "fused_step" and variant == "compute_only":
                     continue
-                cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(d / f"{kernel}.so"),
-                       str(d / f"{kernel}.cu")]
-                procs[kernel, variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                           stderr=subprocess.STDOUT, text=True), d)
+                cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(d / f"{unit}.so"),
+                       str(d / f"{unit}.cu")]
+                procs[unit, variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                         stderr=subprocess.STDOUT, text=True), d, held)
     entries = {}
-    for (kernel, variant), (proc, d) in procs.items():
+    for (unit, variant), (proc, d, held) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {kernel} ({variant}):\n{log}")
+            raise RuntimeError(f"nvcc failed for {unit} ({variant}):\n{log}")
         regs = re.findall(r"Used (\d+) registers", log)
         stack = re.findall(r"(\d+) bytes stack frame", log)
-        print(f"{kernel} {variant}: registers {regs}, stack {stack}", flush=True)
-        fn = getattr(ctypes.CDLL(str(d / f"{kernel}.so")), f"{kernel}_launch")
-        fn.argtypes, fn.restype = ARGS[kernel], ctypes.c_int
-        entries[kernel, variant] = fn
+        print(f"{unit} {variant}: registers {regs}, stack {stack}", flush=True)
+        lib = ctypes.CDLL(str(d / f"{unit}.so"))
+        for kernel in held:
+            fn = getattr(lib, _build.KERNELS[kernel][1])
+            fn.argtypes, fn.restype = ARGS[kernel], ctypes.c_int
+            entries[kernel, variant] = fn
     return entries
 
 
@@ -229,6 +285,9 @@ def main(argv=None):
     if argv == ["decode_attn"]:
         decode_parts(build(("decode_attn.cu",)), g, torch.cuda.current_device(), stream)
         return
+    if argv == ["wkv"]:
+        wkv_parts(build(("wkv.cu",)), g, torch.cuda.current_device(), stream)
+        return
     entries = build()
     weights = [(torch.randn(2 * a, b, device="cuda", generator=g) * 0.1,
                 torch.randn(b, device="cuda", generator=g) * 0.05)
@@ -268,6 +327,40 @@ def main(argv=None):
     k3_run = checked(entries["conv2s", "full"], k3_args[0][1])
     clock_and_power("conv2s (1024, 72, 50) -> 64", lambda: [k3_run() for _ in range(200)])
     decode_parts(entries, g, dev, stream)
+    wkv_parts(entries, g, dev, stream)
+
+
+def wkv_parts(entries, g, dev, stream):
+    """The wkv pair's variants at rwkv6-1.6b's training shape (B 4, T 1024,
+    H 32, hd 64): the forward saving the states, and the backward."""
+    from repro_torch.kernels import ops
+
+    B, T, H, hd = 4, 1024, 32, 64
+    r, k, v, gy = (torch.randn(B, T, H, hd, device="cuda", generator=g) for _ in range(4))
+    w = torch.exp(-torch.exp(torch.randn(B, T, H, hd, device="cuda", generator=g) - 2.5))
+    u = torch.randn(H, hd, device="cuda", generator=g) * 0.5
+    s0, gs = (torch.randn(B, H, hd, hd, device="cuda", generator=g) for _ in range(2))
+    ckpt = torch.empty(ops.wkv_checkpoints_shape(B, T, H, hd), device="cuda")
+    y, s_out, gs0 = torch.empty_like(r), torch.empty_like(s0), torch.empty_like(s0)
+    grads = [torch.empty_like(r) for _ in range(4)]
+    gu_part = torch.empty(B, H, hd, device="cuda")
+    ins = [t.data_ptr() for t in (r, k, v, w, u, s0)]
+    line = [f"wkv at B {B}, T {T}, H {H}, hd {hd}"]
+    for variant in VARIANTS["wkv.cu"][0]:
+        fwd = (*ins, y.data_ptr(), s_out.data_ptr(), ckpt.data_ptr(), B, T, H, hd, dev, stream)
+        bwd = (*ins[:5], ckpt.data_ptr(), gy.data_ptr(), gs.data_ptr(), *(t.data_ptr() for t in grads),
+               gu_part.data_ptr(), gs0.data_ptr(), B, T, H, hd, dev, stream)
+        times = []
+        if not variant.startswith("bwd"):
+            times.append(f"wkv_fwd {time_us(checked(entries['wkv_fwd', variant], fwd)):.1f} us")
+        if variant == "full":  # the forward that saves no states, as a prefill calls it
+            no_saves = (*fwd[:8], None, *fwd[9:])
+            times.append(f"wkv_fwd saving no states "
+                         f"{time_us(checked(entries['wkv_fwd', variant], no_saves)):.1f} us")
+        if not variant.startswith("fwd"):
+            times.append(f"wkv_bwd {time_us(checked(entries['wkv_bwd', variant], bwd)):.1f} us")
+        line.append(f"{variant}: " + ", ".join(times))
+    print("; ".join(line), flush=True)
 
 
 def decode_parts(entries, g, dev, stream):

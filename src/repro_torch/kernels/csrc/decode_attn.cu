@@ -157,20 +157,8 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t* hi, uint3
   *lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// 16 bytes from global to shared memory, asynchronously, through L2 only
-// (cp.async.cg); zeros and no read where !in
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(sm90::smem_u32(dst)), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-// One arrival on `bar` once every cp.async this thread issued before has
-// landed (the barrier counts it among its expected arrivals)
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(sm90::smem_u32(bar))
-               : "memory");
-}
+using sm90::cp_async16;
+using sm90::cp_async_arrive;
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;" ::: "memory"); }
 

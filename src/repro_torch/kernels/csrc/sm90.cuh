@@ -1,8 +1,8 @@
 // Device code shared by the port's persistent sm_90a kernels: the C3 trunk
 // (trunk_common.cuh: fused_step.cu, cnn_trunk.cu) and the k2s2 conv
-// (conv2s.cu).
+// (conv2s.cu); decode_attn.cu and wkv.cu take its copy helpers.
 //
-// All of them run one block per SM of 8 compute warps, which compute
+// The persistent kernels run one block per SM of 8 compute warps, which compute
 // register tiles of f32 FMAs from shared memory, filled by bulk copies
 // (cp.async.bulk) that complete on mbarriers. The trunk kernels add a
 // warpgroup whose first thread issues the copies; ptxas then holds every
@@ -94,6 +94,21 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// 16 bytes from global to shared memory, asynchronously, through L2 only
+// (cp.async.cg); zeros and no read where !in
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued before has
+// landed (the barrier counts it among its expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 // One bulk copy that completes the phase of `bar` (one arrival + its bytes).

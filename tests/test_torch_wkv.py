@@ -22,7 +22,7 @@ torch.set_num_threads(1)
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import _build, breakdown, ops, ref  # noqa: E402
 from repro_torch.nn import ssm  # noqa: E402
 from repro_torch.runtime.opcount import analyze  # noqa: E402
 
@@ -30,15 +30,15 @@ B, H, HD = 2, 2, 32
 TOL = 1e-5  # of each output's largest |value|: f32 sums in another order than XLA's
 
 
-def _inputs(T, hd=HD, seed=0):
-    """r, k, v, w (B, T, H, hd), u (H, hd), a nonzero S0 (B, H, hd, hd) and
+def _inputs(T, hd=HD, seed=0, b=B, h=H):
+    """r, k, v, w (b, T, h, hd), u (h, hd), a nonzero S0 (b, h, hd, hd) and
     the cotangents of y and the last state, as numpy f32."""
     rng = np.random.default_rng(seed + T)
-    seq = (B, T, H, hd)
+    seq = (b, T, h, hd)
     arrays = [rng.standard_normal(seq) for _ in range(3)]
     arrays.append(np.exp(-np.exp(rng.normal(-1.0, 1.0, seq))))  # decays in (0, 1)
-    arrays += [rng.normal(0.0, 0.5, (H, hd)), rng.standard_normal((B, H, hd, hd)),
-               rng.standard_normal(seq), rng.standard_normal((B, H, hd, hd))]
+    arrays += [rng.normal(0.0, 0.5, (h, hd)), rng.standard_normal((b, h, hd, hd)),
+               rng.standard_normal(seq), rng.standard_normal((b, h, hd, hd))]
     return [a.astype(np.float32) for a in arrays]
 
 
@@ -214,6 +214,16 @@ def test_the_wrapper_raises_on_what_the_kernels_do_not_take():
     assert 4 * np.prod(ops.wkv_checkpoints_shape(4, 1024, 32, 64)) == 134_217_728
 
 
+@pytest.mark.parametrize("variant", sorted(breakdown.VARIANTS["wkv.cu"][0]))
+def test_the_breakdown_cuts_lines_the_source_holds(variant):
+    """Each cut-down copy of csrc/wkv.cu that ``python -m
+    repro_torch.kernels.breakdown wkv`` builds on the card edits text the
+    source holds, once each (the tool raises on the card otherwise)."""
+    source = (_build.CSRC / "wkv.cu").read_text()
+    for old, _ in breakdown.VARIANTS["wkv.cu"][0][variant]:
+        assert source.count(old) == 1, old
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -222,14 +232,19 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bh", [(B, H), (1, 3)])
 @pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("T", [1, 16, 37])
-def test_the_kernels_equal_the_plain_loop(cuda, hd, T):
+@pytest.mark.parametrize("T", [1, 16, 37, 64, 65, 200])
+def test_the_kernels_equal_the_plain_loop(cuda, hd, T, bh):
     """The forward and backward kernels against the plain loop and its
     autograd on the card, f32, within 1e-5 of each output's largest value,
     for a loss on y and S and for one on y alone (no g(S_T), as training
-    asks); each wrapper counts one launch a call."""
-    *ins, gy, gs = (torch.from_numpy(a).to(cuda) for a in _inputs(T, hd=hd, seed=hd))
+    asks); each wrapper counts one launch a call. T straddles a chunk of
+    16 steps (the saved-state interval and a stage of the load ring) and
+    the backward's history of 8; B x H 1 x 3 puts three heads of one row
+    side by side (an odd number of backward clusters, one a (b, h))."""
+    *ins, gy, gs = (torch.from_numpy(a).to(cuda)
+                    for a in _inputs(T, hd=hd, seed=hd, b=bh[0], h=bh[1]))
     before = dict(ops.launches)
     a = [t.clone().requires_grad_(True) for t in ins]
     y, s = ops.wkv(*a)
@@ -243,7 +258,8 @@ def test_the_kernels_equal_the_plain_loop(cuda, hd, T):
     for name, x, z in zip(("y", "S", "gr", "gk", "gv", "gw", "gu", "gS0"), (y, s, *got), (wy, ws, *want)):
         _close(x.detach().cpu().numpy(), z.detach().cpu().numpy(), f"{name} hd={hd} T={T}")
     got_y = torch.autograd.grad(ops.wkv(*a)[0], a, gy)
-    want_y = torch.autograd.grad(wy, b, gy)
+    # at T = 1, y does not depend on w: its gradient there is zeros
+    want_y = torch.autograd.grad(wy, b, gy, materialize_grads=True)
     assert ops.launches["wkv_bwd"] == before["wkv_bwd"] + 2
     for name, x, z in zip(("gr", "gk", "gv", "gw", "gu", "gS0"), got_y, want_y):
         _close(x.cpu().numpy(), z.cpu().numpy(), f"{name} of y alone hd={hd} T={T}")
